@@ -1,0 +1,19 @@
+"""Neck registry — port of pytorchocr_tpu/modeling/necks/__init__.py."""
+
+from ..registry import build
+from .fpn import FPN
+from .rnn import SequenceEncoder
+
+__all__ = ["build_neck", "neck_out_channels"]
+
+_NECKS = {"FPN": FPN, "SequenceEncoder": SequenceEncoder}
+_LATER = {"FPEM_FFM": "A.10", "CSPPAN": "A.13"}
+
+
+def build_neck(config):
+    return build("neck", _NECKS, _LATER, config)
+
+
+def neck_out_channels(neck):
+    """Output channel count of a constructed neck module."""
+    return getattr(neck, "fused_channels", None) or neck.out_channels

@@ -1,0 +1,48 @@
+"""FPN neck — port of pytorchocr_tpu/modeling/necks/fpn.py.
+
+1x1 laterals + top-down nearest-upsample-add + 3x3 smoothing; mode "DB"
+concatenates four out_channels/4 maps back to out_channels, otherwise four
+out_channels maps make 4*out_channels. NCHW. Not ported: the ASF attention
+(DB++, ROADMAP.md A.11) and the int8 PTQ flow (A.9).
+"""
+
+import torch
+from torch import nn
+
+from ..common import ConvBNAct, resize_nearest
+
+__all__ = ["FPN"]
+
+
+class FPN(nn.Module):
+    def __init__(self, in_channels, out_channels=256, mode=None, use_asf=False,
+                 attention_type="scale_spatial"):
+        super().__init__()
+        if use_asf:
+            raise NotImplementedError("FPN use_asf (DB++) is not ported (ROADMAP.md A.11)")
+        oc = out_channels
+        self.mode = mode
+        self.fused_channels = oc if mode == "DB" else oc * 4
+        sc = oc // 4 if mode == "DB" else oc
+        c2, c3, c4, c5 = in_channels
+        self.in5 = ConvBNAct(c5, oc, 1, 1)
+        self.in4 = ConvBNAct(c4, oc, 1, 1)
+        self.in3 = ConvBNAct(c3, oc, 1, 1)
+        self.in2 = ConvBNAct(c2, oc, 1, 1)
+        self.out5 = ConvBNAct(oc, sc, 3, 1)
+        self.out4 = ConvBNAct(oc, sc, 3, 1)
+        self.out3 = ConvBNAct(oc, sc, 3, 1)
+        self.out2 = ConvBNAct(oc, sc, 3, 1)
+
+    def forward(self, x):
+        c2, c3, c4, c5 = x
+        in5, in4, in3, in2 = self.in5(c5), self.in4(c4), self.in3(c3), self.in2(c2)
+        out4 = resize_nearest(in5, 2) + in4
+        out3 = resize_nearest(out4, 2) + in3
+        out2 = resize_nearest(out3, 2) + in2
+        p5 = resize_nearest(self.out5(in5), 8)
+        p4 = resize_nearest(self.out4(out4), 4)
+        p3 = resize_nearest(self.out3(out3), 2)
+        p2 = self.out2(out2)
+        feats = [p5, p4, p3, p2] if self.mode == "DB" else [p2, p3, p4, p5]
+        return torch.cat(feats, dim=1)

@@ -1,0 +1,32 @@
+"""Postprocess registry — port of pytorchocr_tpu/postprocess/__init__.py."""
+
+import copy
+
+__all__ = ["build_post_process"]
+
+_LATER = {
+    "PSEPostProcess": "A.10", "PANPostProcess": "A.10", "AttnLabelDecode": "A.11",
+    "ClsPostProcess": "A.5", "DistillationCTCLabelDecode": "A.12",
+    "DistillationDBPostProcess": "A.12", "TableLabelDecode": "A.13",
+}
+
+
+def build_post_process(config, global_config=None):
+    from .db_postprocess import DBPostProcess
+    from .rec_postprocess import CTCLabelDecode
+
+    support = {"DBPostProcess": DBPostProcess, "CTCLabelDecode": CTCLabelDecode}
+    config = copy.deepcopy(config)
+    name = config.pop("name")
+    if name == "None":
+        return None
+    if global_config is not None:
+        config.update(global_config)
+    if name in support:
+        return support[name](**config)
+    if name in _LATER:
+        raise NotImplementedError(
+            "post process %s is not ported yet (ROADMAP.md %s)" % (name, _LATER[name])
+        )
+    raise NotImplementedError("post process %s: unknown; the port supports %s"
+                              % (name, list(support)))

@@ -1,0 +1,123 @@
+"""The weight bridge: JAX/flax variables -> the port's state_dict.
+
+The inverse of tools/convert_torch_weights.py. The port's module names mirror
+the flax ones, so a torch module at `a.b.c` reads the flax subtree
+`params/a/b/c` (and `batch_stats/a/b/c`):
+
+  Conv2d            kernel (kh, kw, in/groups, out) -> weight (out, in/groups, kh, kw)
+  ConvTranspose2d   kernel (kh, kw, in, out) -> weight (in, out, kh, kw), spatially
+                    flipped: flax's ConvTranspose applies the flipped kernel
+  Linear            kernel (in, out) -> weight (out, in)
+  BatchNorm2d       scale, bias, mean, var -> weight, bias, running_mean, running_var
+  BiLSTM            wi (2, C, 4H), wh (2, H, 4H), b (2, 4H), direction-major with
+                    gates i, f, g, o -> weight_ih_l0[_reverse] = wi[d].T,
+                    weight_hh_l0[_reverse] = wh[d].T, bias_ih = b[d], bias_hh = 0
+
+Every torch tensor must find its flax leaf and every flax leaf must be used;
+anything else raises.
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..modeling.necks.rnn import BiLSTM
+
+
+def _subtree(tree, path):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _module_leaves(module, params, stats):
+    """(torch name -> numpy value, used flax leaf keys) for one module."""
+    def p(key):
+        return np.asarray(params[key], np.float32)
+
+    if isinstance(module, BiLSTM):
+        wi, wh, b = p("wi"), p("wh"), p("b")
+        out = {}
+        for d, suffix in enumerate(("", "_reverse")):
+            out["rnn.weight_ih_l0" + suffix] = wi[d].T
+            out["rnn.weight_hh_l0" + suffix] = wh[d].T
+            out["rnn.bias_ih_l0" + suffix] = b[d]
+            out["rnn.bias_hh_l0" + suffix] = np.zeros_like(b[d])
+        return out, {("p", "wi"), ("p", "wh"), ("p", "b")}
+    if isinstance(module, nn.ConvTranspose2d):
+        out = {"weight": np.transpose(p("kernel")[::-1, ::-1], (2, 3, 0, 1))}
+    elif isinstance(module, nn.Conv2d):
+        out = {"weight": np.transpose(p("kernel"), (3, 2, 0, 1))}
+    elif isinstance(module, nn.Linear):
+        out = {"weight": p("kernel").T}
+    elif isinstance(module, nn.BatchNorm2d):
+        return {
+            "weight": p("scale"), "bias": p("bias"),
+            "running_mean": np.asarray(stats["mean"], np.float32),
+            "running_var": np.asarray(stats["var"], np.float32),
+        }, {("p", "scale"), ("p", "bias"), ("s", "mean"), ("s", "var")}
+    else:
+        return {}, set()
+    used = {("p", "kernel")}
+    if module.bias is not None:
+        out["bias"] = p("bias")
+        used.add(("p", "bias"))
+    return out, used
+
+
+def _flat_keys(tree, prefix=()):
+    if not isinstance(tree, dict):
+        return {prefix}
+    keys = set()
+    for k, v in tree.items():
+        keys |= _flat_keys(v, prefix + (k,))
+    return keys
+
+
+def flax_to_state_dict(model, variables):
+    """Map flax `variables` ({"params": ..., "batch_stats": ...}, numpy or
+    array leaves) onto `model`'s state_dict. Returns a dict of CPU tensors."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    skip = set()  # modules handled by their parent (BiLSTM's nn.LSTM)
+    state, used = {}, set()
+    for name, module in model.named_modules():
+        if name in skip or not name:
+            continue
+        if isinstance(module, BiLSTM):
+            skip.add(name + ".rnn")
+        path = tuple(name.split("."))
+        try:
+            leaves, keys = _module_leaves(
+                module, _subtree(params, path) or {}, _subtree(stats, path) or {}
+            )
+        except KeyError as e:
+            raise KeyError("weight bridge: no flax leaf %s for torch module %s"
+                           % (e, name)) from None
+        for k, v in leaves.items():
+            state["%s.%s" % (name, k)] = torch.from_numpy(np.array(v, np.float32))
+        for kind, k in keys:
+            used.add(("params" if kind == "p" else "batch_stats",) + path + (k,))
+
+    expected = set(model.state_dict())
+    missing = sorted(k for k in expected - set(state) if not k.endswith("num_batches_tracked"))
+    all_flax = {("params",) + k for k in _flat_keys(params)}
+    all_flax |= {("batch_stats",) + k for k in _flat_keys(stats)}
+    unused = sorted("/".join(k) for k in all_flax - used)
+    if missing or unused:
+        raise KeyError(
+            "weight bridge mismatch: torch tensors without a flax leaf %s; "
+            "flax leaves without a torch tensor %s" % (missing, unused)
+        )
+    for k in expected:
+        if k.endswith("num_batches_tracked"):
+            state[k] = torch.zeros((), dtype=torch.long)
+    return state
+
+
+def load_flax_variables(model, variables):
+    """Load flax `variables` into `model` in place (shapes checked)."""
+    model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
+    return model
