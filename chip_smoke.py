@@ -4,23 +4,40 @@
   python3 chip_smoke.py          # from the root of a checkout; needs one card
 
 Phases, one line each, any failure ends the run with a non-zero exit:
-  1. device report and the build of the hand-written kernels (nvcc, sm_90a);
+  1. device report and the build of the hand-written kernels (nvcc, sm_90a,
+     one nvcc per source, all started together);
   2. the run-max kernel (K1) against its plain PyTorch version, exactly, on
      both axes at 736x1280 (random and text-like), 4096x256 and 64x20000,
      with both times at 736x1280;
-  3. the DB front half on the card against the CPU run of the port's plain
+  3. the propagation kernel (K2) against its plain PyTorch version, exactly
+     (labels and the round-16 flag), on both rules at 736x1280 (nested
+     text-like kernels, random seeds), 184x320, 97x1001, 4096x256 and
+     1x5000, and the fixpoint on the card against its CPU run; both times
+     at 736x1280;
+  4. the DB front half on the card against the CPU run of the port's plain
      path on a 736x1280 map of rectangles, L and U shapes;
-  4. the slice: OCRer.run_many at full width (DB-ResNet18 + FPN 256, CRNN VGG
-     v1 x1.0 + BiLSTM 256 + CTC over 6,624 classes) with seeded weights on 4
-     synthetic 736x1280 pages: float32 on the card (TF32 off) must equal the
-     CPU run, boxes and texts on every page; only a box that holds a pixel
-     within rounding of the threshold, or a line with a CTC step within
-     rounding of a tie, may differ (compare_boxes, compare_texts). It is
-     timed. Then the bf16 default is the main-path run whose kernel launches
-     are counted; it is timed and reported against float32 by box IoU.
-The line before the last is {"kernels": [...]}, the last one the contract
-{"ok": true, "device": {...}}. Without a card, or outside a checkout, it
-exits non-zero and prints no result.
+  5. the DB slice: OCRer.run_many at full width (DB-ResNet18 + FPN 256, CRNN
+     VGG v1 x1.0 + BiLSTM 256 + CTC over 6,624 classes) with seeded weights
+     on 4 synthetic 736x1280 pages: float32 on the card (TF32 off) must
+     equal the CPU run, boxes and texts on every page; only a box that holds
+     a pixel within rounding of the threshold, or a line with a CTC step
+     within rounding of a tie, may differ (compare_boxes, compare_texts). It
+     is timed. Then the bf16 default is the main-path run whose kernel
+     launches are counted; it is timed and reported against float32 by box
+     IoU;
+  6. the PSE slice: OCRer.run_many with det_r50_pse.yml (ResNet-50, FPN 256,
+     PSEHead 256 -> 7, scale 1) and the same CRNN on the same pages, with
+     the float32 checks of phase 5 over the 7 maps (on identical maps the
+     card's postprocess must give the CPU's boxes exactly), then the bf16
+     run with K1 and K2 launches counted, timed, and the expansion of one
+     page timed level by level;
+  7. the PAN det path: Deter.run_batch with det_r18_pan.yml (ResNet-18,
+     FPEM_FFM v2 128 x2, PANHead 128 -> 6) with the float32 box checks over
+     the text and kernel maps, then the bf16 run, counted and timed.
+Each main-path run sets the kernels' counts to 0 just before it and reads
+them just after. The line before the last is {"kernels": [...]}, the last
+one the contract {"ok": true, "device": {...}}. Without a card, or outside
+a checkout, it exits non-zero and prints no result.
 """
 
 import json
@@ -36,6 +53,8 @@ PAGES = 4
 H, W = 736, 1280
 DET_CFG = os.path.join(REPO, "configs", "det", "det_r18_db.yml")
 REC_CFG = os.path.join(REPO, "configs", "rec", "rec_vgg_bilstm_ctc.yml")
+PSE_CFG = os.path.join(REPO, "configs", "det", "det_r50_pse.yml")
+PAN_CFG = os.path.join(REPO, "configs", "det", "det_r18_pan.yml")
 
 
 def say(phase, msg):
@@ -98,13 +117,18 @@ def phase_kernels(dev, card):
     from pytorchocr_tpu_torch.ops import runmax
 
     t0 = time.perf_counter()
-    _kernels.load("runmax")
-    if "runmax" in _kernels.build_log:
-        secs, log = _kernels.build_log["runmax"]
-        regs = " | ".join(ln.split(":", 1)[-1].strip() for ln in log.splitlines() if "registers" in ln)
-        say("build", "runmax.cu built by nvcc (sm_90a) in %.2f s; ptxas: %s" % (secs, regs))
-    else:
-        say("build", "runmax.cu loaded from an earlier build in %.2f s" % (time.perf_counter() - t0))
+    names = list(_kernels.SIGNATURES)
+    _kernels.build(names)  # one nvcc per source, all started together
+    for name in names:
+        _kernels.load(name)
+        if name in _kernels.build_log:
+            secs, log = _kernels.build_log[name]
+            regs = " | ".join(ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                              if "registers" in ln)
+            say("build", "%s.cu built by nvcc (sm_90a) in %.2f s; ptxas: %s" % (name, secs, regs))
+        else:
+            say("build", "%s.cu loaded from an earlier build" % name)
+    say("build", "all kernels ready in %.2f s" % (time.perf_counter() - t0))
 
     rng = np.random.RandomState(SEED)
     cases = {
@@ -150,6 +174,90 @@ def phase_kernels(dev, card):
     ms = (times[0][0] + times[1][0]) / 2
     plain = (times[0][1] + times[1][1]) / 2
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain}
+
+
+def nested_field(rng, h, w, n):
+    """max over `n` boxes of 1 - (normalized Chebyshev distance to the box
+    centre), plus noise: thresholds at rising levels give nested kernels,
+    and overlapping boxes contest pixels."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:h, :w]
+    field = np.full((h, w), -1.0, np.float32)
+    for _ in range(n):
+        cy, cx = rng.randint(0, h), rng.randint(0, w)
+        ry, rx = rng.uniform(2, h / 10 + 3), rng.uniform(3, w / 8 + 4)
+        field = np.maximum(field, 1 - np.maximum(np.abs(yy - cy) / ry, np.abs(xx - cx) / rx))
+    return field + 0.08 * rng.rand(h, w).astype(np.float32)
+
+
+def propagate_case(rng, h, w, fill_only, text_like):
+    """(labels int32, mask bool) of one K2 case. The fill rule gets sparse
+    random seed labels (inside the smallest kernel where `text_like`), the
+    CC rule every masked pixel's own index, as CC labelling starts."""
+    import numpy as np
+
+    if text_like:
+        field = nested_field(rng, h, w, 80)
+        mask, core = field > 0.0, field > 0.8
+    else:
+        mask = core = rng.rand(h, w) > 0.5
+    if fill_only:
+        labels = np.where(core & (rng.rand(h, w) < 0.01), rng.randint(1, 1000, (h, w)), 0)
+    else:
+        labels = np.where(mask, np.arange(h * w).reshape(h, w) + 1, 0)
+    return labels.astype(np.int32), mask
+
+
+def phase_propagate(dev, card):
+    """K2 against its plain version on the card's inputs, exactly: labels and
+    flag of two chained launches (the flag set, then perhaps clear), then the
+    whole fixpoint against its CPU run."""
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.ops import propagate
+
+    rng = np.random.RandomState(SEED + 3)
+    shapes = [(H, W), (184, 320), (97, 1001), (4096, 256), (1, 5000)]
+    max_err, calls, timed = 0, {}, {}
+    for h, w in shapes:
+        for fill_only in (True, False):
+            labels, mask = propagate_case(rng, h, w, fill_only, text_like=(h, w) == (H, W))
+            tl, tm = torch.from_numpy(labels), torch.from_numpy(mask)
+            dl, dm = tl.to(dev), tm.to(dev)
+            if (h, w) == (H, W):
+                timed[fill_only] = (dl, dm)
+            for _ in range(2):
+                want, want_flag = propagate.propagate_rounds_ref(tl, tm, fill_only)
+                got, flag = propagate.propagate_rounds(dl, dm, fill_only)
+                err = int((got.cpu().long() - want.long()).abs().max())
+                check(err == 0, "propagate %dx%d fill_only=%s differs from the plain version"
+                      % (h, w, fill_only))
+                check(int(flag.item()) == int(want_flag.item()),
+                      "propagate %dx%d fill_only=%s: changed flag" % (h, w, fill_only))
+                max_err = max(max_err, err)
+                tl, dl = want, got
+            before = propagate.launches
+            got = propagate.spread_labels_fixpoint(dl, dm, fill_only)
+            calls["%dx%d %s" % (h, w, "fill" if fill_only else "cc")] = propagate.launches - before
+            want = propagate.spread_labels_fixpoint(tl, tm, fill_only)
+            check(torch.equal(got.cpu(), want), "fixpoint %dx%d fill_only=%s differs from the "
+                  "CPU run" % (h, w, fill_only))
+    times = {}
+    for fill_only, (dl, dm) in timed.items():
+        times[fill_only] = (
+            cuda_ms(lambda: propagate.propagate_rounds(dl, dm, fill_only)),
+            cuda_ms(lambda: propagate.propagate_rounds_ref(dl, dm, fill_only)),
+        )
+    say("K2", "propagate_rounds == plain (labels and flag) on both rules at %s; max_abs_err %d"
+        % (", ".join("%dx%d" % s for s in shapes), max_err))
+    say("K2", "fixpoint on the card == its CPU run everywhere; launches to the fixpoint: %s"
+        % ", ".join("%s %d" % kv for kv in calls.items()))
+    for fill_only in (True, False):
+        say("K2", "%dx%d %s rule: kernel %.4f ms, plain %.4f ms per 16-round call on %s"
+            % ((H, W, "fill" if fill_only else "CC") + times[fill_only] + (card,)))
+    return {"max_abs_err": max_err, "ms": times[True][0], "plain_ms": times[True][1]}
 
 
 def phase_front_half(dev):
@@ -202,6 +310,20 @@ def make_pages(dirname):
     return paths
 
 
+def det_inputs(deter, pages):
+    """`pages` as `deter` feeds them to its model (normalized NCHW float32 on
+    the CPU) and their dark pixels (N, H, W)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    det_imgs = np.concatenate([deter._preprocess(cv2.imread(p))[0] for p in pages])
+    x = torch.from_numpy(det_imgs).float()
+    x = ((x / 255.0 - deter.runner.mean) / deter.runner.std).permute(0, 3, 1, 2)
+    dark = np.stack([cv2.cvtColor(im, cv2.COLOR_RGB2GRAY) < 128 for im in det_imgs])
+    return x, dark
+
+
 def seeded_checkpoints(dirname, det_cfg, rec_cfg, pages):
     """Full-width models with weights from a torch.Generator; the DB head is
     made text-like on `pages` (utils.seeded.text_like_db_head_) and the CTC
@@ -220,11 +342,7 @@ def seeded_checkpoints(dirname, det_cfg, rec_cfg, pages):
     gen = torch.Generator().manual_seed(SEED)
     deter = Deter(det_cfg, None, device="cpu")
     model = seeded_init_(deter.runner.model, gen)
-    det_imgs = np.concatenate([deter._preprocess(cv2.imread(p))[0] for p in pages])
-    x = torch.from_numpy(det_imgs).float()
-    x = ((x / 255.0 - deter.runner.mean) / deter.runner.std).permute(0, 3, 1, 2)
-    dark = np.stack([cv2.cvtColor(im, cv2.COLOR_RGB2GRAY) < 128 for im in det_imgs])
-    margin = text_like_db_head_(model, x, dark)
+    margin = text_like_db_head_(model, *det_inputs(deter, pages))
     det_pt = os.path.join(dirname, "det.pt")
     torch.save(model.state_dict(), det_pt)
     recer = Recer(rec_cfg, None, device="cpu")
@@ -237,24 +355,70 @@ def seeded_checkpoints(dirname, det_cfg, rec_cfg, pages):
     return det_pt, rec_pt, margin
 
 
+def seeded_det(dirname, det_cfg, pages, text_like, seed):
+    """A full-width det model of `det_cfg` with weights from a
+    torch.Generator seeded with `seed`, its head made text-like on `pages`
+    by `text_like` (utils.seeded). Returns the .pt path and the head's
+    margins in logits, one per thresholded map."""
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+    from pytorchocr_tpu_torch.utils.seeded import seeded_init_
+
+    gen = torch.Generator().manual_seed(seed)
+    deter = Deter(det_cfg, None, device="cpu")
+    model = seeded_init_(deter.runner.model, gen)
+    margins = text_like(model, *det_inputs(deter, pages))
+    path = os.path.join(dirname, os.path.basename(det_cfg).replace(".yml", ".pt"))
+    torch.save(model.state_dict(), path)
+    return path, margins
+
+
 def flat(result):
     return [[(b.reshape(-1).tolist(), t, p) for b, t, p in page] for page in result]
 
 
-def timed_runs(ocr, pages, reps=5):
-    """Mean seconds of `reps` run_many calls on `pages` (after the first,
-    untimed call) and the lines found per call."""
+def box_lists(result):
+    """One list of flat boxes per page, from OCR rows or from det boxes."""
+    import numpy as np
+
+    return [[np.asarray(r[0] if isinstance(r, tuple) else r).reshape(-1).tolist() for r in page]
+            for page in result]
+
+
+def timed_runs(fn, reps=5):
+    """Mean seconds of `reps` calls of `fn` (after an earlier, untimed call)
+    and the lines (or boxes) it returns per call."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        lines = sum(len(p) for p in ocr.run_many(pages))
+        lines = sum(len(p) for p in fn())
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps, lines
 
 
-def phase_slice(dev, card):
+class float32_on_card:
+    """TF32 off for cuDNN and cuBLAS inside the block, as the float32
+    comparisons with the CPU need."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def phase_slice(dev, card, tmp, pages):
+    """The DB slice. Returns the main-path run's K1 launches and the seeded
+    CRNN's .pt, which the PSE slice reads too."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
@@ -262,51 +426,47 @@ def phase_slice(dev, card):
 
     det_cfg, rec_cfg = DET_CFG, REC_CFG
     reps = 5
-    with tempfile.TemporaryDirectory() as tmp:
-        pages = make_pages(tmp)
-        det_pt, rec_pt, margin = seeded_checkpoints(tmp, det_cfg, rec_cfg, pages)
+    det_pt, rec_pt, margin = seeded_checkpoints(tmp, det_cfg, rec_cfg, pages)
 
-        t0 = time.perf_counter()
-        ocr_cpu = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device="cpu")
-        cpu = flat(ocr_cpu.run_many(pages))
-        cpu_s = time.perf_counter() - t0
-        n_lines = sum(len(p) for p in cpu)
-        check(n_lines > 0, "the seeded slice found no text boxes on the CPU")
+    t0 = time.perf_counter()
+    ocr_cpu = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device="cpu")
+    cpu = flat(ocr_cpu.run_many(pages))
+    cpu_s = time.perf_counter() - t0
+    n_lines = sum(len(p) for p in cpu)
+    check(n_lines > 0, "the seeded slice found no text boxes on the CPU")
 
-        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    with float32_on_card():
         ocr32 = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev, dtype=torch.float32)
         launches0 = runmax.launches
         f32 = flat(ocr32.run_many(pages))
         check(runmax.launches > launches0, "the float32 slice launched no run-max kernel")
-        pairs = compare_boxes(ocr_cpu, ocr32, pages, cpu, f32, margin)
+        pairs = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+                              box_lists(f32), margin)
         compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs)
-        secs32, lines32 = timed_runs(ocr32, pages, reps)
+        secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("slice-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off; %d pages of %dx%d, "
             "mean of %d runs) on %s; the cpu's first call %.1f s"
             % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps, card, cpu_s))
         say("slice-f32", "stages per %d-page call: %s on %s"
-            % (PAGES, stage_breakdown(ocr32, pages), card))
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        del ocr32, ocr_cpu
+            % (PAGES, stage_breakdown(ocr32.deter, pages, "db", ocr32.recer), card))
+    del ocr32, ocr_cpu
 
-        ocr = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev)  # bf16 default
-        runmax.launches = 0
-        cc_label.alternations = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bf16 = flat(ocr.run_many(pages))
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches, alts = runmax.launches, cc_label.alternations
-        check(launches > 0, "the main-path run launched no run-max kernel")
-        lines16 = sum(len(p) for p in bf16)
-        check(lines16 > 0, "the bf16 slice found no text boxes")
-        matched, same_text = match_iou(bf16, f32)
-        secs, _ = timed_runs(ocr, pages, reps)
-        breakdown = stage_breakdown(ocr, pages)
-        busy = device_time(ocr, pages, secs)
+    ocr = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev)  # bf16 default
+    runmax.launches = 0
+    cc_label.alternations = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf16 = flat(ocr.run_many(pages))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, alts = runmax.launches, cc_label.alternations
+    check(launches > 0, "the main-path run launched no run-max kernel")
+    lines16 = sum(len(p) for p in bf16)
+    check(lines16 > 0, "the bf16 slice found no text boxes")
+    matched, same_text = match_iou(bf16, f32)
+    secs, _ = timed_runs(lambda: ocr.run_many(pages), reps)
+    breakdown = stage_breakdown(ocr.deter, pages, "db", ocr.recer)
+    busy = device_time(lambda: ocr.run_many(pages), secs)
     say("slice-bf16", "main path: runmax.launches %d, alternations %d (%.1f per page); "
         "first call %.3f s on %s" % (launches, alts, alts / PAGES, first_s, card))
     say("slice-bf16", "bf16 against the float32 run on the card (a report, not a check): "
@@ -316,6 +476,169 @@ def phase_slice(dev, card):
         % (PAGES / secs, lines16 / secs, PAGES, H, W, reps, card))
     say("slice-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
     say("slice-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
+    return launches, rec_pt
+
+
+def pse_expansion_report(deter, pages):
+    """pse_expand_device on the first page's kernels from `deter`'s maps: the
+    K2 launches of each level's fixpoint, the K1 launches, and the time of
+    the whole expansion (host clock; it syncs once per launch)."""
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.ops import cc_label, propagate, runmax
+
+    post = deter.det_post_process_class
+    batch, _ = _det_batch(deter, pages[:1])
+    _, kernels, labels = post.front_half(deter.runner(batch)["maps"])
+    min_area = post.min_area / (post.scale ** 2)
+    per_level = []
+    fixpoint = cc_label.spread_labels_fixpoint
+
+    def counted(*args, **kwargs):
+        before = propagate.launches
+        out = fixpoint(*args, **kwargs)
+        per_level.append(propagate.launches - before)
+        return out
+
+    cc_label.spread_labels_fixpoint = counted
+    k1 = runmax.launches
+    try:
+        again = cc_label.pse_expand_device(kernels[0], min_area)
+    finally:
+        cc_label.spread_labels_fixpoint = fixpoint
+    k1 = runmax.launches - k1
+    check(torch.equal(again, labels[0]), "the PSE expansion is not deterministic")
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cc_label.pse_expand_device(kernels[0], min_area)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    k = kernels.shape[1]
+    sizes = [int(v) for v in kernels[0].flatten(1).sum(1)]
+    return ("pse_expand_device on page 0 (%dx%d, %d instances; kernel pixels %s): K2 launches "
+            "per level %s (levels %d..0), %d in all, K1 launches %d; %.2f ms (median of 5, "
+            "host clock)" % (kernels.shape[2], kernels.shape[3], int(labels[0].max()), sizes,
+                             per_level, k - 2, sum(per_level), k1, float(np.median(ms))))
+
+
+def phase_pse(dev, card, tmp, pages, rec_pt):
+    """The PSE slice: det_r50_pse.yml + the DB slice's CRNN through
+    OCRer.run_many. Returns the main-path run's (K1, K2) launches."""
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
+    from pytorchocr_tpu_torch.ops import propagate, runmax
+    from pytorchocr_tpu_torch.utils.seeded import text_like_pse_head_
+
+    det_cfg, rec_cfg, reps = PSE_CFG, REC_CFG, 3
+    det_pt, margins = seeded_det(tmp, det_cfg, pages, text_like_pse_head_, SEED + 4)
+    say("pse", "seeded PSE head (ResNet-50, FPN 256, PSEHead 256 -> 7): margins %s logits"
+        % _fmt(margins))
+
+    t0 = time.perf_counter()
+    ocr_cpu = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device="cpu")
+    cpu = flat(ocr_cpu.run_many(pages))
+    cpu_s = time.perf_counter() - t0
+    check(sum(len(p) for p in cpu) > 0, "the seeded PSE slice found no text boxes on the CPU")
+
+    with float32_on_card():
+        ocr32 = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev, dtype=torch.float32)
+        before = runmax.launches, propagate.launches
+        f32 = flat(ocr32.run_many(pages))
+        check(runmax.launches > before[0] and propagate.launches > before[1],
+              "the float32 PSE slice did not launch both kernels")
+        pairs = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu), box_lists(f32),
+                              margins, tag="pse-f32", channels=range(7), components=True)
+        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="pse-f32")
+        secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
+        say("pse-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off; %d pages of %dx%d, "
+            "mean of %d runs) on %s; the cpu's first call %.1f s"
+            % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps, card, cpu_s))
+        say("pse-f32", "stages per %d-page call: %s on %s"
+            % (PAGES, stage_breakdown(ocr32.deter, pages, "pse", ocr32.recer), card))
+        say("pse-f32", "%s on %s" % (pse_expansion_report(ocr32.deter, pages), card))
+    del ocr32, ocr_cpu
+
+    ocr = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev)  # bf16 default
+    runmax.launches = propagate.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf16 = flat(ocr.run_many(pages))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = runmax.launches, propagate.launches
+    check(launches[0] > 0, "the PSE main-path run launched no run-max kernel")
+    check(launches[1] > 0, "the PSE main-path run launched no propagation kernel")
+    lines16 = sum(len(p) for p in bf16)
+    check(lines16 > 0, "the bf16 PSE slice found no text boxes")
+    matched, same_text = match_iou(bf16, f32)
+    secs, _ = timed_runs(lambda: ocr.run_many(pages), reps)
+    breakdown = stage_breakdown(ocr.deter, pages, "pse", ocr.recer)
+    busy = device_time(lambda: ocr.run_many(pages), secs)
+    say("pse-bf16", "main path: runmax.launches %d, propagate.launches %d (%.1f per page); "
+        "first call %.3f s on %s" % (launches + (launches[1] / PAGES, first_s, card)))
+    say("pse-bf16", "bf16 against the float32 run on the card (a report, not a check): "
+        "%d lines; %d match an f32 box at IoU >= 0.5, %d of them with the f32 text"
+        % (lines16, matched, same_text))
+    say("pse-bf16", "%.3f pages/s, %.1f lines/s (%d pages of %dx%d, mean of %d runs) on %s"
+        % (PAGES / secs, lines16 / secs, PAGES, H, W, reps, card))
+    say("pse-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
+    say("pse-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
+    say("pse-bf16", "%s on %s" % (pse_expansion_report(ocr.deter, pages), card))
+    return launches
+
+
+def phase_pan(dev, card, tmp, pages):
+    """The PAN det path: det_r18_pan.yml through Deter.run_batch. Returns the
+    main-path run's K1 launches."""
+    import cv2
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+    from pytorchocr_tpu_torch.ops import runmax
+    from pytorchocr_tpu_torch.utils.seeded import text_like_pan_head_
+
+    det_cfg, reps = PAN_CFG, 5
+    det_pt, margins = seeded_det(tmp, det_cfg, pages, text_like_pan_head_, SEED + 5)
+    say("pan", "seeded PAN head (ResNet-18, FPEM_FFM v2 128 x2, PANHead 128 -> 6): text and "
+        "kernel margins %s logits" % _fmt(margins))
+    imgs = [cv2.imread(p) for p in pages]
+    deter_cpu = Deter(det_cfg, det_pt, device="cpu")
+    cpu = box_lists(deter_cpu.run_batch(imgs))
+    check(sum(len(p) for p in cpu) > 0, "the seeded PAN det found no text boxes on the CPU")
+
+    with float32_on_card():
+        deter32 = Deter(det_cfg, det_pt, device=dev, dtype=torch.float32)
+        before = runmax.launches
+        f32 = box_lists(deter32.run_batch(imgs))
+        check(runmax.launches > before, "the float32 PAN det launched no run-max kernel")
+        compare_boxes(deter_cpu, deter32, pages, cpu, f32, margins, tag="pan-f32",
+                      channels=(0, 1), components=True)
+        secs32, boxes32 = timed_runs(lambda: deter32.run_batch(imgs), reps)
+        say("pan-f32", "%.3f pages/s, %.1f boxes/s (float32, TF32 off; %d pages of %dx%d, "
+            "mean of %d runs) on %s" % (PAGES / secs32, boxes32 / secs32, PAGES, H, W, reps, card))
+    del deter32, deter_cpu
+
+    deter = Deter(det_cfg, det_pt, device=dev)  # bf16 default
+    runmax.launches = 0
+    torch.cuda.synchronize()
+    boxes16 = sum(len(p) for p in deter.run_batch(imgs))
+    torch.cuda.synchronize()
+    launches = runmax.launches
+    check(launches > 0, "the PAN main-path run launched no run-max kernel")
+    check(boxes16 > 0, "the bf16 PAN det found no text boxes")
+    secs, _ = timed_runs(lambda: deter.run_batch(imgs), reps)
+    breakdown = stage_breakdown(deter, pages, "pan")
+    busy = device_time(lambda: deter.run_batch(imgs), secs)
+    say("pan-bf16", "main path: runmax.launches %d; %d boxes (float32: %d)"
+        % (launches, boxes16, sum(len(p) for p in f32)))
+    say("pan-bf16", "%.3f pages/s, %.1f boxes/s (%d pages of %dx%d, mean of %d runs) on %s"
+        % (PAGES / secs, boxes16 / secs, PAGES, H, W, reps, card))
+    say("pan-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
+    say("pan-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
     return launches
 
 
@@ -327,84 +650,121 @@ def _det_batch(deter, pages):
     return (np.concatenate([p[0] for p in pre]), np.concatenate([p[1] for p in pre]))
 
 
-def compare_boxes(ocr_cpu, ocr32, pages, cpu, f32, margin):
-    """Boxes of the float32 slice on the card against the CPU run. The prob
-    maps of the two agree to rounding, so a pixel whose probability lies
-    within that rounding of the threshold may binarize differently and
-    change the boxes of its component. Checked: every pixel that binarizes
-    differently lies within twice the largest map difference of the
-    threshold; on identical maps the card's postprocess (the run-max
-    kernel) gives the CPU's boxes exactly; and on every page each box is
-    equal to one of the other run's, except a box whose bounding rectangle
-    holds such a pixel. `margin` is the seeded DB head's distance of the
-    nearest pixel to the threshold, in logits. Returns the equal boxes as
-    (page, cpu line, card line) triples, lines counted over all pages."""
+def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", channels=(0,),
+                  components=False):
+    """Boxes of a float32 det path on the card against the CPU run (`cpu`,
+    `f32`: one list of flat boxes per page). The two runs' maps agree to
+    rounding, so a pixel whose value lies within that rounding of the
+    threshold may binarize differently in one of `channels` and change the
+    boxes of its component. Checked: every pixel that binarizes differently
+    lies within twice the largest map difference of the threshold; on
+    identical maps the card's postprocess (its kernels) gives the CPU's
+    boxes exactly; and on every page each box is equal to one of the other
+    run's, except a box whose bounding rectangle holds such a pixel (the
+    page area of its map pixel, with `components`). With `components` (PSE,
+    PAN: map 0 is the text map, and the instances of one text component
+    grow against each other, so a flipped pixel can move the border between
+    any two of them) a box whose rectangle meets the rectangle of a text
+    component, on either run, that holds such a pixel is excused too; those
+    are counted apart. `margin` is the seeded head's distance of the
+    nearest pixel to the threshold, in logits (one per map for PSE/PAN).
+    Returns the equal boxes as (page, cpu line, card line) triples, lines
+    counted over all pages."""
+    import cv2
     import numpy as np
     import torch
 
-    batch, shapes = _det_batch(ocr_cpu.deter, pages)
-    maps_gpu = ocr32.deter.runner(batch)["maps"].float()
-    m_gpu = maps_gpu.cpu()[..., 0]
-    m_cpu = ocr_cpu.deter.runner(batch)["maps"].float()[..., 0]
+    channels = list(channels)
+    batch, shapes = _det_batch(deter_cpu, pages)
+    maps_gpu = deter32.runner(batch)["maps"].float()
+    m_gpu = maps_gpu.cpu()[..., channels]
+    m_cpu = deter_cpu.runner(batch)["maps"].float()[..., channels]
     diff = float((m_gpu - m_cpu).abs().max())
-    thresh = ocr_cpu.deter.det_post_process_class.thresh
-    flipped = (m_gpu > thresh) != (m_cpu > thresh)
+    thresh = deter_cpu.det_post_process_class.thresh
+    flips = (m_gpu > thresh) != (m_cpu > thresh)
     near = (m_cpu - thresh).abs() <= 2 * diff
-    check(bool((~flipped | near).all()), "a pixel far from the threshold binarizes differently")
-    post_gpu = ocr32.deter.det_post_process_class({"maps": maps_gpu}, shapes)
-    post_cpu = ocr_cpu.deter.det_post_process_class({"maps": maps_gpu.cpu()}, shapes)
+    check(bool((~flips | near).all()), "a pixel far from the threshold binarizes differently")
+    flipped = flips.any(-1)
+    post_gpu = deter32.det_post_process_class({"maps": maps_gpu}, shapes)
+    post_cpu = deter_cpu.det_post_process_class({"maps": maps_gpu.cpu()}, shapes)
     for i, (a, b) in enumerate(zip(post_gpu, post_cpu)):
         check(torch.equal(torch.from_numpy(a["points"]), torch.from_numpy(b["points"])),
               "page %d: on the same map, cuda postprocess boxes != cpu" % i)
 
-    pairs, excused, flips = [], 0, []
+    pairs, excused, by_component, flip_counts = [], 0, 0, []
     base_cpu = base_gpu = 0
-    height, width = m_cpu.shape[1:]
+    height, width = m_cpu.shape[1:3]
     for i, (page_gpu, page_cpu) in enumerate(zip(f32, cpu)):
         ys, xs = np.nonzero(flipped[i].numpy())
-        src_h, src_w = shapes[i][0], shapes[i][1]
-        flip_xy = np.stack([xs * src_w / width, ys * src_h / height], axis=1)  # page pixels
-        flips.append(len(flip_xy))
+        cell = np.array([shapes[i][1] / width, shapes[i][0] / height])  # page pixels per map pixel
+        flip_lo = np.stack([xs, ys], axis=1) * cell
+        flip_hi = flip_lo + cell if components else flip_lo
+        flip_counts.append(len(flip_lo))
+        comp_lo = comp_hi = np.zeros((0, 2))
+        if components and len(flip_lo):
+            text = ((m_cpu[i, ..., 0] > thresh) | (m_gpu[i, ..., 0] > thresh)).numpy()
+            _, lab, stats, _ = cv2.connectedComponentsWithStats(text.astype(np.uint8),
+                                                                connectivity=4)
+            hit = np.unique(lab[ys, xs])
+            hit = hit[hit > 0]
+            comp_lo = stats[hit, 0:2] * cell
+            comp_hi = (stats[hit, 0:2] + stats[hit, 2:4]) * cell
+
+        def excuse(box, here, there):
+            nonlocal excused, by_component
+            if _holds_flip(box, flip_lo, flip_hi):
+                excused += 1
+            elif _holds_flip(box, comp_lo, comp_hi):
+                by_component += 1
+            else:
+                check(False, "page %d: %s box %s has no equal on the %s and no pixel binarized "
+                      "differently" % (i, here, box, there))
+
         unused = {}
-        for j, row in enumerate(page_gpu):
-            unused.setdefault(tuple(row[0]), []).append(j)
-        for j, row in enumerate(page_cpu):
-            left = unused.get(tuple(row[0]))
+        for j, box in enumerate(page_gpu):
+            unused.setdefault(tuple(box), []).append(j)
+        for j, box in enumerate(page_cpu):
+            left = unused.get(tuple(box))
             if left:
                 pairs.append((i, base_cpu + j, base_gpu + left.pop(0)))
             else:
-                check(_holds_flip(row[0], flip_xy), "page %d: cpu box %s has no equal on the "
-                      "card and no pixel binarized differently" % (i, row[0]))
-                excused += 1
+                excuse(box, "cpu", "card")
         for key, left in unused.items():
             for _ in left:
-                check(_holds_flip(list(key), flip_xy), "page %d: card box %s has no equal on "
-                      "the cpu and no pixel binarized differently" % (i, list(key)))
-                excused += 1
+                excuse(list(key), "card", "cpu")
         base_cpu += len(page_cpu)
         base_gpu += len(page_gpu)
     gap = float((m_cpu - thresh).abs().min())
-    say("slice-f32", "DB maps max |cuda - cpu| %.3g; nearest cpu pixel %.3g from the threshold "
-        "(seeded head margin %.3g logits); pixels binarized differently per page %s, all within "
-        "2x that of the threshold; on the same maps the cuda postprocess boxes == cpu on all %d "
-        "pages" % (diff, gap, margin, flips, len(pages)))
-    say("slice-f32", "cuda float32 (TF32 off) vs cpu float32: %d of %d cpu boxes equal on the card "
-        "(%d card boxes); %d boxes without an equal, each holding a pixel binarized differently"
-        % (len(pairs), base_cpu, base_gpu, excused))
+    say(tag, "maps max |cuda - cpu| %.3g; nearest cpu pixel %.3g from the threshold (seeded head "
+        "margin %s logits); pixels binarized differently per page %s, all within 2x that of the "
+        "threshold; on the same maps the cuda postprocess boxes == cpu on all %d pages"
+        % (diff, gap, _fmt(margin), flip_counts, len(pages)))
+    say(tag, "cuda float32 (TF32 off) vs cpu float32: %d of %d cpu boxes equal on the card "
+        "(%d card boxes); %d boxes without an equal hold a pixel binarized differently%s"
+        % (len(pairs), base_cpu, base_gpu, excused,
+           "; %d more lie in a text component that holds one" % by_component
+           if components else ""))
     return pairs
 
 
-def _holds_flip(points, flip_xy):
+def _fmt(margin):
+    if isinstance(margin, (list, tuple)):
+        return "[%s]" % ", ".join("%.3g" % m for m in margin)
+    return "%.3g" % margin
+
+
+def _holds_flip(points, flip_lo, flip_hi):
     """Whether the bounding rectangle of a box (flat x, y list), one pixel
-    wider on each side, holds one of the points `flip_xy` (K, 2)."""
+    wider on each side, meets one of the rectangles [flip_lo, flip_hi]
+    (K, 2) of page pixels (points where flip_lo == flip_hi)."""
     import numpy as np
 
     pts = np.asarray(points, np.float64).reshape(-1, 2)
     lo, hi = pts.min(0) - 1, pts.max(0) + 1
-    return bool(((flip_xy >= lo) & (flip_xy <= hi)).all(1).any())
+    return bool(((flip_lo <= hi) & (flip_hi >= lo)).all(1).any())
 
 
-def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs):
+def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="slice-f32"):
     """Texts of the float32 slice on the card against the CPU run. On the
     CPU's line crops, the argmax must agree at every step whose CPU top-2
     margin exceeds twice the largest CPU/card probability difference; then
@@ -435,7 +795,7 @@ def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs):
         same += got == want
         check(got == want or tied[k_cpu],
               "line %d: f32 text cuda %r != cpu %r" % (k_cpu, got, want))
-    say("slice-f32", "CTC probs max |cuda - cpu| %.3g; argmax equal at all %d decisive steps; "
+    say(tag, "CTC probs max |cuda - cpu| %.3g; argmax equal at all %d decisive steps; "
         "texts equal on %d of the %d equal boxes (%d of all %d cpu lines hold a step within 2x "
         "that of a tie)" % (diff, int(decisive.sum()), same, len(pairs), sum(tied), len(rows_cpu)))
 
@@ -470,8 +830,8 @@ def match_iou(runs, refs, min_iou=0.5):
     return matched, same
 
 
-def device_time(ocr, pages, call_s):
-    """Card time of one run_many from a torch.profiler trace: the time of
+def device_time(fn, call_s):
+    """Card time of one call of `fn` from a torch.profiler trace: the time of
     the kernels and copies on the card summed (work that overlaps counts
     twice), as a share of `call_s`, the same call's unprofiled wall time,
     and the five kernels that take the most. Host-side op events, which
@@ -482,7 +842,7 @@ def device_time(ocr, pages, call_s):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ocr.run_many(pages)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
@@ -496,9 +856,11 @@ def device_time(ocr, pages, call_s):
     )
 
 
-def stage_breakdown(ocr, pages):
-    """Host-clock stage times of one run_many, each ending in a sync; the
-    DB front half alone (the device part of db_post) is timed once more
+def stage_breakdown(deter, pages, kind, recer=None):
+    """Host-clock stage times of one det (and, with `recer`, rec) pass over
+    `pages`, each ending in a sync; the postprocess's device front half
+    (`kind` db: db_front_half per page; pse, pan: the class's front_half,
+    which holds the CC labelling and the expansion) is timed once more alone
     before the whole postprocess."""
     import cv2
     import numpy as np
@@ -518,22 +880,26 @@ def stage_breakdown(ocr, pages):
         times[name] = time.perf_counter() - t0
         return out
 
-    deter = ocr.deter
     imgs = timed("decode", lambda: [cv2.imread(p) for p in pages])
     pre = timed("det_pre", lambda: [deter._preprocess(im) for im in imgs])
     batch, _ = padded_pow2_batch([p[0] for p in pre], combine=np.concatenate)
     shapes, _ = padded_pow2_batch([p[1] for p in pre], combine=np.concatenate)
     maps = timed("det_forward", lambda: deter.runner(batch))
     post_cls = deter.det_post_process_class
-    probs = maps["maps"][..., 0].float()
-    timed("db_front_half", lambda: [
-        db_front_half(probs[i], post_cls.thresh, post_cls.max_candidates)
-        for i in range(len(pages))
-    ])
-    post = timed("db_post (front half + host tail)", lambda: post_cls(maps, shapes))
-    boxes = [post[i]["points"] for i in range(len(pages))]  # crop cost is order-free
-    parts = timed("crops", lambda: [c for im, b in zip(imgs, boxes) for c in crop_lines(im, b)])
-    timed("rec", lambda: ocr.recer.run_batch(parts))
+    if kind == "db":
+        probs = maps["maps"][..., 0].float()
+        timed("db_front_half", lambda: [
+            db_front_half(probs[i], post_cls.thresh, post_cls.max_candidates)
+            for i in range(len(pages))
+        ])
+    else:
+        timed("%s_front_half" % kind, lambda: post_cls.front_half(maps["maps"]))
+    post = timed("%s_post (front half + host tail)" % kind, lambda: post_cls(maps, shapes))
+    if recer is not None:
+        boxes = [post[i]["points"] for i in range(len(pages))]  # crop cost is order-free
+        parts = timed("crops", lambda: [c for im, b in zip(imgs, boxes)
+                                        for c in crop_lines(im, b)])
+        timed("rec", lambda: recer.run_batch(parts))
     return ", ".join("%s %.1f ms" % (k, v * 1e3) for k, v in times.items())
 
 
@@ -554,22 +920,39 @@ def main():
     card = card_line()
     say("device", "torch.cuda: %s; nvidia-smi: %s; torch %s, CUDA %s"
         % (torch.cuda.get_device_name(0), card, torch.__version__, torch.version.cuda))
+    t0 = time.perf_counter()
     k1 = phase_kernels(dev, card)
+    k2 = phase_propagate(dev, card)
     phase_front_half(dev)
-    launches = phase_slice(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        pages = make_pages(tmp)
+        db_k1, rec_pt = phase_slice(dev, card, tmp, pages)
+        pse_k1, pse_k2 = phase_pse(dev, card, tmp, pages, rec_pt)
+        pan_k1 = phase_pan(dev, card, tmp, pages)
     bad = [m for m in ("jax", "flax") if m in sys.modules]
     check(not bad, "the port imported %s" % bad)
+    say("done", "main-path launches: K1 %d (DB %d, PSE %d, PAN %d), K2 %d (PSE); all phases "
+        "%.1f s" % (db_k1 + pse_k1 + pan_k1, db_k1, pse_k1, pan_k1, pse_k2,
+                    time.perf_counter() - t0))
 
-    kernel = {
-        "name": "segmented_runmax",
-        "route": "cuda",
-        "source": "pytorchocr_tpu_torch/csrc/runmax.cu",
-        "replaces": "pytorchocr_tpu/ops/pallas_propagate.py:195",
-        "launches": launches,
-    }
-    kernel.update(k1)
+    kernels = [
+        dict({
+            "name": "segmented_runmax",
+            "route": "cuda",
+            "source": "pytorchocr_tpu_torch/csrc/runmax.cu",
+            "replaces": "pytorchocr_tpu/ops/pallas_propagate.py:195",
+            "launches": db_k1 + pse_k1 + pan_k1,
+        }, **k1),
+        dict({
+            "name": "propagate_rounds",
+            "route": "cuda",
+            "source": "pytorchocr_tpu_torch/csrc/propagate.cu",
+            "replaces": "pytorchocr_tpu/ops/pallas_propagate.py:41",
+            "launches": pse_k2,
+        }, **k2),
+    ]
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -29,6 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: name -> (symbol, argtypes)
 SIGNATURES = {
     "runmax": ("runmax_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "propagate": ("propagate_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 
@@ -46,24 +47,40 @@ def _nvcc():
     return path
 
 
-def _build(name):
+def _lib_path(name):
     src = os.path.join(SRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest[:16]))
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (lib, os.getpid())
+    return src, os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest[:16]))
+
+
+def build(names):
+    """Build the libraries of `names` that are not built yet, one nvcc per
+    source, all started together. Returns {name: library path}."""
+    libs, procs = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed on %s:\n%s" % (src, proc.stderr))
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
-    build_log[name] = (time.perf_counter() - t0, proc.stderr)
-    return lib
+    for name in names:
+        src, lib = _lib_path(name)
+        libs[name] = lib
+        if os.path.exists(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = "%s.%d.tmp" % (lib, os.getpid())
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ), src, tmp)
+    failed = []
+    for name, (proc, src, tmp) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("nvcc failed on %s:\n%s" % (src, err))
+            continue
+        os.replace(tmp, libs[name])  # atomic: concurrent builders never see a partial file
+        build_log[name] = (time.perf_counter() - t0, err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def load(name):
@@ -71,7 +88,7 @@ def load(name):
     if needed."""
     if name not in _loaded:
         symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(_build(name)), symbol)
+        fn = getattr(ctypes.CDLL(build([name])[name]), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn

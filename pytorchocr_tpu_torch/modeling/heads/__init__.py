@@ -2,12 +2,14 @@
 
 from ..registry import build
 from .det_db_head import DBHead
+from .det_pan_head import PANHead
+from .det_pse_head import PSEHead
 from .rec_ctc_head import CTCHead
 
 __all__ = ["build_head"]
 
-_HEADS = {"DBHead": DBHead, "CTCHead": CTCHead}
-_LATER = {"PSEHead": "A.10", "PANHead": "A.10", "ClsHead": "A.5", "SLAHead": "A.13"}
+_HEADS = {"DBHead": DBHead, "PSEHead": PSEHead, "PANHead": PANHead, "CTCHead": CTCHead}
+_LATER = {"ClsHead": "A.5", "SLAHead": "A.13"}
 
 
 def build_head(config):

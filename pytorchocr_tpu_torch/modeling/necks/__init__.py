@@ -1,13 +1,14 @@
 """Neck registry — port of pytorchocr_tpu/modeling/necks/__init__.py."""
 
 from ..registry import build
+from .fpem_ffm import FPEM_FFM
 from .fpn import FPN
 from .rnn import SequenceEncoder
 
 __all__ = ["build_neck", "neck_out_channels"]
 
-_NECKS = {"FPN": FPN, "SequenceEncoder": SequenceEncoder}
-_LATER = {"FPEM_FFM": "A.10", "CSPPAN": "A.13"}
+_NECKS = {"FPN": FPN, "FPEM_FFM": FPEM_FFM, "SequenceEncoder": SequenceEncoder}
+_LATER = {"CSPPAN": "A.13"}
 
 
 def build_neck(config):

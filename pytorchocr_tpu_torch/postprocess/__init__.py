@@ -5,7 +5,7 @@ import copy
 __all__ = ["build_post_process"]
 
 _LATER = {
-    "PSEPostProcess": "A.10", "PANPostProcess": "A.10", "AttnLabelDecode": "A.11",
+    "AttnLabelDecode": "A.11",
     "ClsPostProcess": "A.5", "DistillationCTCLabelDecode": "A.12",
     "DistillationDBPostProcess": "A.12", "TableLabelDecode": "A.13",
 }
@@ -13,9 +13,12 @@ _LATER = {
 
 def build_post_process(config, global_config=None):
     from .db_postprocess import DBPostProcess
+    from .pan_postprocess import PANPostProcess
+    from .pse_postprocess import PSEPostProcess
     from .rec_postprocess import CTCLabelDecode
 
-    support = {"DBPostProcess": DBPostProcess, "CTCLabelDecode": CTCLabelDecode}
+    support = {"DBPostProcess": DBPostProcess, "PSEPostProcess": PSEPostProcess,
+               "PANPostProcess": PANPostProcess, "CTCLabelDecode": CTCLabelDecode}
     config = copy.deepcopy(config)
     name = config.pop("name")
     if name == "None":

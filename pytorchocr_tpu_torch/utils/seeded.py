@@ -2,10 +2,11 @@
 
 `seeded_init_` draws a model's weights from a torch.Generator with the JAX
 package's initialisers. Untrained weights map a page to noise and a near
-uniform softmax, so `text_like_db_head_` and `decisive_ctc_head_` reshape the
-last layers of the DB and CTC heads on the run's own pages: the DB
-postprocess then finds text-like components and the CTC collapse reads
-decided characters. Used by chip_smoke.py and the slice test; no serving path
+uniform softmax, so `text_like_db_head_`, `text_like_pse_head_`,
+`text_like_pan_head_` and `decisive_ctc_head_` reshape the last layers of the
+detection and CTC heads on the run's own pages: the detection postprocesses
+then find text-like components and the CTC collapse reads decided
+characters. Used by chip_smoke.py and the slice test; no serving path
 calls them.
 """
 
@@ -112,6 +113,67 @@ def text_like_db_head_(model, images, dark, thresh=0.3):
     logit = math.log(thresh / (1.0 - thresh))
     tower.deconv2.bias.fill_(logit - a * float(zd + zl) / 2.0 - center)
     return float(v[widest + 1] - v[widest]) / 2.0
+
+
+def _text_like_rows_(conv, h, dark, rows, levels, thresh, gain=16.0, window=0.04):
+    """Point rows `rows` of the 1x1 conv `conv` along the dark-minus-light
+    direction of its input `h` (N, C, H', W'), float64 on the CPU; `dark`
+    (N, H, W) marks the dark pixels of the pages, H a multiple of H'.
+
+    u = 0 at the light blocks' median projection and 1 at the dark blocks'
+    (a block is dark when half its pixels are). Row k's logit becomes
+    thresh + gain * (u - t_k), with t_k in the middle of the widest gap of
+    these pages' u within `window` of levels[k]. Returns each row's half gap
+    in logits: the distance of its pixel nearest the threshold."""
+    n, _, hh, _ = h.shape
+    dark = torch.as_tensor(dark, dtype=torch.float64).expand(n, -1, -1)
+    share = F.avg_pool2d(dark[:, None], dark.shape[-2] // hh)[:, 0]
+    is_dark, is_light = share >= 0.5, share == 0
+    hc = h.permute(1, 0, 2, 3)
+    w = hc[:, is_dark].mean(dim=1) - hc[:, is_light].mean(dim=1)
+    z = torch.einsum("nchw,c->nhw", h, w)
+    zd, zl = float(z[is_dark].median()), float(z[is_light].median())
+    u = torch.unique((z - zl) / (zd - zl))
+    margins = []
+    for row, level in zip(rows, levels):
+        lo, hi = level - window, level + window
+        v = torch.cat([torch.tensor([lo], dtype=u.dtype), u[(u > lo) & (u < hi)],
+                       torch.tensor([hi], dtype=u.dtype)])
+        widest = int(torch.diff(v).argmax())
+        center = float(v[widest] + v[widest + 1]) / 2.0
+        conv.weight[row].copy_((gain / (zd - zl) * w).view(-1, 1, 1))
+        conv.bias[row] = thresh - gain * (zl / (zd - zl) + center)
+        margins.append(gain * float(v[widest + 1] - v[widest]) / 2.0)
+    return margins
+
+
+@torch.no_grad()
+def text_like_pse_head_(model, images, dark, thresh=0.0, levels=None):
+    """Make a PSE model with untrained, seeded weights map dark text to
+    nested kernels: every output map of the head's last 1x1 conv takes the
+    same dark-minus-light direction of its input on `images` (NCHW,
+    normalized; `dark` (N, H, W) or (H, W)), and the levels rise map by map
+    (`levels`, in units of the light-to-dark median distance; default 0.3 to
+    0.8), so kernel k+1 lies inside kernel k and the expansion has work at
+    every level. The gain puts the text map's logit over dark text near
+    +11, far above box_thresh 0.85 (+1.73). Returns each map's margin in
+    logits (see _text_like_rows_)."""
+    conv = model.head.conv2
+    k = conv.out_channels
+    if levels is None:
+        levels = [0.3 + 0.5 * i / (k - 1) for i in range(k)]
+    h = _eval_hooked(model, conv, images).double().cpu()
+    return _text_like_rows_(conv, h, dark, range(k), levels, thresh)
+
+
+@torch.no_grad()
+def text_like_pan_head_(model, images, dark, thresh=0.0, levels=(0.3, 0.6)):
+    """The PSE helper for a PAN head: maps 0 (text) and 1 (kernel) take the
+    dark-minus-light direction at rising levels; the 4 embedding maps keep
+    their seeded values. Returns the two maps' margins in logits."""
+    conv = model.head.conv2
+    h = _eval_hooked(model, conv, images).double().cpu()
+    return _text_like_rows_(conv, h, dark, (0, 1), levels, thresh)
 
 
 @torch.no_grad()

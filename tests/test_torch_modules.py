@@ -9,8 +9,6 @@ at atol 2e-3 / rtol 1e-3, as tests/test_weight_convert.py holds ResNet
 amplify the last-bit differences). Integer outputs (CTC codes, lengths) and
 the nearest upsample are exact."""
 
-from functools import partial
-
 import numpy as np
 import pytest
 import torch
@@ -32,49 +30,8 @@ from pytorchocr_tpu_torch.modeling.heads.rec_ctc_head import CTCHead
 from pytorchocr_tpu_torch.modeling.necks.rnn import SequenceEncoder
 from pytorchocr_tpu_torch.ops.ctc_decode import ctc_greedy_collapse
 from pytorchocr_tpu_torch.postprocess import build_post_process
-from pytorchocr_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
-import torch_port_util  # noqa: F401  (caps torch's intra-op threads)
-
-DEEP = dict(atol=2e-3, rtol=1e-3)
-
-
-def randomize(tree, rng):
-    """Random biases, BN scales and statistics (kernels stay at init)."""
-    if not isinstance(tree, dict):
-        return tree
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = randomize(v, rng)
-            continue
-        v = np.asarray(v)
-        if k in ("bias", "b", "mean"):
-            v = 0.1 * rng.randn(*v.shape)
-        elif k == "scale":
-            v = 1.0 + 0.1 * rng.randn(*v.shape)
-        elif k == "var":
-            v = 0.5 + rng.rand(*v.shape)
-        out[k] = v.astype(np.float32)
-    return out
-
-
-def init_pair(jmod, tmod, x_nhwc, seed=0, **apply_kw):
-    """Init the flax module, randomise, bridge into the torch module; return
-    the flax variables and a jitted eval apply."""
-    init = jax.jit(partial(jmod.init, train=True, **apply_kw))
-    variables = init(jax.random.PRNGKey(seed), jnp.asarray(x_nhwc))
-    variables = randomize(jax.device_get(dict(variables)), np.random.RandomState(seed))
-    load_flax_variables(tmod, variables)
-    tmod.eval()
-    return variables, jax.jit(partial(jmod.apply, train=False, **apply_kw))
-
-
-def nchw(x):
-    return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))))
-
-
-def nhwc(t):
-    return np.transpose(t.detach().numpy(), (0, 2, 3, 1))
+from pytorchocr_tpu_torch.utils.weights import flax_to_state_dict
+from torch_port_util import DEEP, init_pair, nchw, nhwc
 
 
 def test_conv_bn_act_matches_jax():
@@ -214,12 +171,12 @@ def test_bridge_rejects_mismatched_trees():
 
 
 @pytest.mark.parametrize("section,name,item", [
-    ("Backbone", "MobileNetV3", "A.11"), ("Neck", "FPEM_FFM", "A.10"),
-    ("Head", "PSEHead", "A.10"),
+    ("Backbone", "MobileNetV3", "A.11"), ("Neck", "CSPPAN", "A.13"),
+    ("Head", "ClsHead", "A.5"),
 ])
 def test_registry_names_the_roadmap_item(section, name, item):
     arch = dict(DB_ARCH, **{section: {"name": name}})
     with pytest.raises(NotImplementedError, match=item):
         build_model(arch)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        build_post_process({"name": "PSEPostProcess"})
+    with pytest.raises(NotImplementedError, match="A.5"):
+        build_post_process({"name": "ClsPostProcess"})

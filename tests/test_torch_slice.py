@@ -31,8 +31,6 @@ import jax.numpy as jnp
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "deploy")))
 
 from pytorchocr_tpu.modeling import build_model as jax_build_model
-from pytorchocr_tpu.optimizer import build_optimizer
-from pytorchocr_tpu.trainer import create_train_state
 from pytorchocr_tpu.utils.config import load_config
 from pytorchocr_tpu.utils.save_load import save_model
 from pytorchocr_tpu_torch.deploy.common import Runner
@@ -40,7 +38,7 @@ from pytorchocr_tpu_torch.deploy.infer_det import Deter
 from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
 from pytorchocr_tpu_torch.utils.seeded import text_like_db_head_
 from pytorchocr_tpu_torch.utils.weights import load_flax_variables
-import torch_port_util  # noqa: F401  (caps torch's intra-op threads)
+from torch_port_util import jax_train_state
 
 from synth import make_det_dataset
 
@@ -102,19 +100,6 @@ def _load_tool():
     return mod
 
 
-def _train_state(cfg_path, example_shape, char_num=None):
-    config = load_config(cfg_path)
-    if char_num is not None:
-        config["Architecture"]["Head"]["out_channels"] = char_num
-    model = jax_build_model(config["Architecture"])
-    tx, _ = build_optimizer(
-        {"base_lr": 1e-3, "optim": {"name": "Adam"}}, epochs=1, step_each_epoch=1
-    )
-    return create_train_state(
-        model, tx, jax.random.PRNGKey(0), (np.zeros(example_shape, np.float32),)
-    )
-
-
 def _text_like_det_state(state, det_cfg, pages):
     """Run text_like_db_head_ on the port's model (bridged from `state`) over
     `pages` and write the four changed tensors back into the flax params."""
@@ -148,10 +133,10 @@ def slice_setup(tmp_path_factory):
     label_file = make_det_dataset(str(tmp / "imgs"), n=2, size=224, seed=3)
     pages = [label_file.replace("det_label.txt", "det_%04d.png" % i) for i in range(2)]
 
-    det_state = _train_state(det_cfg, (1, 64, 64, 3))
+    det_state = jax_train_state(det_cfg, (1, 64, 64, 3))
     det_state = _text_like_det_state(det_state, det_cfg, pages)
     save_model(det_state, {}, load_config(det_cfg), str(tmp), prefix="det_ckpt")
-    rec_state = _train_state(rec_cfg, (1, 32, 96, 1), char_num=37)
+    rec_state = jax_train_state(rec_cfg, (1, 32, 96, 1), char_num=37)
     save_model(rec_state, {}, load_config(rec_cfg), str(tmp), prefix="rec_ckpt")
 
     tool = _load_tool()
