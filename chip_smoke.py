@@ -7,13 +7,16 @@ Phases, one line each, any failure ends the run with a non-zero exit:
   1. device report and the build of the hand-written kernels (nvcc, sm_90a,
      one nvcc per source, all started together);
   2. the run-max kernel (K1) against its plain PyTorch version, exactly, on
-     both axes at 736x1280 (random and text-like), 4096x256 and 64x20000,
-     with both times at 736x1280;
+     both axes and with the changed flag, at 736x1280 (random, text-like,
+     all masked, empty), 184x320, 4096x256, 64x20000, 97x1001, 1x5000 and
+     5000x1; then, at 736x1280 and 184x320 on labelled text-like maps, its
+     device-only time (kernel_ms), wrapper time, plain time and bound;
   3. the propagation kernel (K2) against its plain PyTorch version, exactly
      (labels and the round-16 flag), on both rules at 736x1280 (nested
-     text-like kernels, random seeds), 184x320, 97x1001, 4096x256 and
-     1x5000, and the fixpoint on the card against its CPU run; both times
-     at 736x1280;
+     text-like kernels, random seeds), 184x320, 97x1001, 4096x256, 1x5000
+     and three edge cases (an empty mask, runs only round 16 completes,
+     lone seeds), and the fixpoint on the card against its CPU run; the
+     same four times and bound at 736x1280 on both rules;
   4. the DB front half on the card against the CPU run of the port's plain
      path on a 736x1280 map of rectangles, L and U shapes;
   5. the DB slice: OCRer.run_many at full width (DB-ResNet18 + FPN 256, CRNN
@@ -35,9 +38,12 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      FPEM_FFM v2 128 x2, PANHead 128 -> 6) with the float32 box checks over
      the text and kernel maps, then the bf16 run, counted and timed.
 Each main-path run sets the kernels' counts to 0 just before it and reads
-them just after. The line before the last is {"kernels": [...]}, the last
-one the contract {"ok": true, "device": {...}}. Without a card, or outside
-a checkout, it exits non-zero and prints no result.
+them just after. At the end it checks that no module of jax, flax or the
+JAX package (pytorchocr_tpu) was loaded. The line before the last is
+{"kernels": [...]} (device_ms, wrapper_ms, plain_ms, bound_ms, bound_by,
+library_ms: null with its reason, launches), the last one the contract
+{"ok": true, "device": {...}}. Without a card, or outside a checkout, it
+exits non-zero and prints no result.
 """
 
 import json
@@ -75,6 +81,8 @@ def card_line():
 
 
 def cuda_ms(fn, iters=50, warmup=5):
+    """ms per call of `fn` between CUDA events around a loop of calls: the
+    larger of the host's enqueue time and the card's time."""
     import torch
 
     for _ in range(warmup):
@@ -87,6 +95,86 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(launch, iters=100, sessions=5):
+    """Device-only time per call of `launch` (raw kernel launches into
+    preallocated outputs): for each kernel or memset a call runs, the mean
+    card duration torch.profiler records for it, summed. Host enqueue time
+    and the gaps between launches are not in it. The tracer drops records
+    (from 1 to 90 of 100 seen on the H100, most in a process's first
+    session), so the means are over the records the traces hold, gathered
+    over up to `sessions` sessions of `iters` calls until every kernel has
+    50, and at least 10 must be there. The inputs stay in L2 between calls,
+    as they do for the fixpoint loops that call the kernels. Returns (ms,
+    "name ms xrecords, ..." per kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    totals = {}  # kernel name -> [device us, records]
+    for _ in range(sessions):
+        for _ in range(5):
+            launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                launch()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
+                name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+                t = totals.setdefault(name, [0.0, 0])
+                t[0] += e.self_device_time_total
+                t[1] += e.count
+        if totals and min(n for _, n in totals.values()) >= 50:
+            break
+    check(bool(totals) and min(n for _, n in totals.values()) >= 10,
+          "the profiler traces hold under 10 records of a kernel: kernel time not measured")
+    means = [(name, us / 1e3 / n, n) for name, (us, n) in totals.items()]
+    return sum(m[1] for m in means), ", ".join("%s %.4f x%d" % m for m in means)
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+
+
+def int32_ops_per_s():
+    """The card's INT32 rate: 64 INT32 lanes per SM x the SMs x the SM's
+    maximum clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return 64 * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+NO_LIBRARY = {
+    "segmented_runmax": "no single PyTorch call computes a max over the maximal masked runs "
+                        "of a line (no segmented scan op)",
+    "propagate_rounds": "no single PyTorch call computes 16 masked rounds of 4-neighbour "
+                        "label-max spreading",
+}
+
+
+def kernel_row(tag, what, name, device, wrapper, plain, nbytes, ops, int32_rate, card):
+    """Print one kernel's numbers at one shape against its bound: the larger
+    of `nbytes` (each input read once, each output written once) over the
+    card's memory rate and `ops` INT32 operations over its INT32 rate.
+    `device` is kernel_ms's (ms, per-kernel parts)."""
+    device, parts = device
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / int32_rate * 1e3
+    bound, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    say(tag, "%s: device %.4f ms (%s), wrapper %.4f ms, plain %.4f ms; bound %.4f ms by %s "
+        "(%.2f MB at 3.35 TB/s = %.4f ms, %.1f M INT32 ops at %.1f T/s = %.4f ms), %.0f%% of "
+        "the bound; library_ms: none (%s) on %s"
+        % (what, device, parts, wrapper, plain, bound, bound_by, nbytes / 1e6, by_bytes, ops / 1e6,
+           int32_rate / 1e12, by_ops, 100.0 * bound / device, NO_LIBRARY[name], card))
+    return {"device_ms": device, "wrapper_ms": wrapper, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 def text_like_binary(rng, h, w, n_lines):
@@ -109,7 +197,7 @@ def text_like_binary(rng, h, w, n_lines):
     return m
 
 
-def phase_kernels(dev, card):
+def phase_kernels(dev, card, int32_rate):
     import numpy as np
     import torch
 
@@ -134,8 +222,14 @@ def phase_kernels(dev, card):
     cases = {
         "736x1280 random": (rng.rand(H, W) > 0.5),
         "736x1280 text-like": text_like_binary(rng, H, W, 300),
+        "184x320 text-like": text_like_binary(rng, 184, 320, 20),
         "4096x256 tall": (rng.rand(4096, 256) > 0.4),
         "64x20000 long": (rng.rand(64, 20000) > 0.4),
+        "97x1001 odd": (rng.rand(97, 1001) > 0.3),
+        "1x5000 row": (rng.rand(1, 5000) > 0.2),
+        "5000x1 column": (rng.rand(5000, 1) > 0.2),
+        "736x1280 all masked": np.ones((H, W), bool),
+        "736x1280 empty": np.zeros((H, W), bool),
     }
     max_err, shapes = 0, []
     for name, mask in cases.items():
@@ -156,24 +250,38 @@ def phase_kernels(dev, card):
         check(int(same.item()) == 0, "changed flag set at a fixpoint, %s" % name)
         shapes.append(name)
 
-    # times at 736x1280 on a labelled text-like map: one alternation's inputs
-    mask = torch.from_numpy(cases["736x1280 text-like"]).to(dev)
-    idx = torch.arange(1, H * W + 1, dtype=torch.int32, device=dev).view(H, W)
-    lbl = torch.where(mask, idx, 0)
-    times = {}
-    for axis in (1, 0):
-        times[axis] = (
-            cuda_ms(lambda: runmax.segmented_runmax(lbl, mask, axis)),
-            cuda_ms(lambda: runmax.segmented_runmax_ref(lbl, mask, axis)),
-        )
-    say("K1", "segmented_runmax == plain on both axes at %s; max_abs_err %d"
+    say("K1", "segmented_runmax == plain on both axes, and the flag, at %s; max_abs_err %d"
         % (", ".join(shapes), max_err))
-    for axis in (1, 0):
-        say("K1", "736x1280 axis %d: kernel %.4f ms, plain %.4f ms on %s"
-            % ((axis,) + times[axis] + (card,)))
-    ms = (times[0][0] + times[1][0]) / 2
-    plain = (times[0][1] + times[1][1]) / 2
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain}
+
+    # times on labelled text-like maps, one alternation's inputs: the axis-1
+    # launch, then the axis-0 launch with prev and the changed flag, as
+    # cc_label.spread_labels_scan makes them (736x1280: DB, PSE; 184x320: PAN)
+    rows = {}
+    for name in ("736x1280 text-like", "184x320 text-like"):
+        mask = torch.from_numpy(cases[name]).to(dev)
+        h, w = mask.shape
+        lbl = torch.where(mask, torch.arange(1, h * w + 1, dtype=torch.int32,
+                                             device=dev).view(h, w), 0)
+        out = torch.empty_like(lbl)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        for axis, prev in ((1, None), (0, lbl)):
+            with_flag = prev is not None
+            rows[name, axis] = kernel_row(
+                "K1", "%s axis %d%s" % (name, axis, " with prev and flag" if with_flag else ""),
+                "segmented_runmax",
+                kernel_ms(lambda: runmax.launch(lbl, mask, out, axis, prev,
+                                                flag if with_flag else None)),
+                cuda_ms(lambda: runmax.segmented_runmax(lbl, mask, axis, prev)),
+                cuda_ms(lambda: runmax.segmented_runmax_ref(lbl, mask, axis)),
+                # int32 labels and uint8 mask in, int32 out; prev in and the flag out
+                h * w * (9 + 4 * with_flag) + 4 * with_flag,
+                h * w * (4 + with_flag),  # two scans' max and select, the compare
+                int32_rate, card)
+    # the JSON line: 736x1280, per launch, the mean of an alternation's two
+    main = [rows["736x1280 text-like", axis] for axis in (1, 0)]
+    return dict({k: (main[0][k] + main[1][k]) / 2
+                 for k in ("device_ms", "wrapper_ms", "plain_ms", "bound_ms")},
+                bound_by=main[0]["bound_by"], max_abs_err=max_err)
 
 
 def nested_field(rng, h, w, n):
@@ -209,7 +317,27 @@ def propagate_case(rng, h, w, fill_only, text_like):
     return labels.astype(np.int32), mask
 
 
-def phase_propagate(dev, card):
+def edge_propagate_cases():
+    """(name, (labels, mask)) of the K2 edge cases: an empty mask (every tile
+    skips its rounds); runs that only round 16 completes (the flag set by the
+    last round alone), one inside a tile's interior and one across a tile
+    edge; and lone seeds in wide masks, where tiles stop early."""
+    import numpy as np
+
+    empty = (np.arange(130 * 300, dtype=np.int32).reshape(130, 300) % 7, np.zeros((130, 300), bool))
+    lbl, msk = np.zeros((130, 300), np.int32), np.zeros((130, 300), bool)
+    for y, x0, seed in ((70, 40, 5), (10, 50, 7), (100, 120, 9)):
+        msk[y, x0 : x0 + 17] = True  # 16 pixels from the seed: round 16 reaches the last
+        lbl[y, x0] = seed
+    lbl[100:103, 200:203] = 3  # labelled, masked, nothing to fill: stops at round 1
+    msk[100:103, 200:203] = True
+    seeds = np.zeros((200, 200), np.int32)
+    seeds[[5, 150], [5, 120]] = [11, 4]
+    return [("130x300 empty mask", empty), ("130x300 round 16 only", (lbl, msk)),
+            ("200x200 lone seeds", (seeds, np.ones((200, 200), bool)))]
+
+
+def phase_propagate(dev, card, int32_rate):
     """K2 against its plain version on the card's inputs, exactly: labels and
     flag of two chained launches (the flag set, then perhaps clear), then the
     whole fixpoint against its CPU run."""
@@ -220,44 +348,51 @@ def phase_propagate(dev, card):
 
     rng = np.random.RandomState(SEED + 3)
     shapes = [(H, W), (184, 320), (97, 1001), (4096, 256), (1, 5000)]
+    cases = [("%dx%d" % (h, w), fill_only) + propagate_case(rng, h, w, fill_only, (h, w) == (H, W))
+             for h, w in shapes for fill_only in (True, False)]
+    cases += [(name, fill_only) + case for name, case in edge_propagate_cases()
+              for fill_only in (True, False)]
     max_err, calls, timed = 0, {}, {}
-    for h, w in shapes:
-        for fill_only in (True, False):
-            labels, mask = propagate_case(rng, h, w, fill_only, text_like=(h, w) == (H, W))
-            tl, tm = torch.from_numpy(labels), torch.from_numpy(mask)
-            dl, dm = tl.to(dev), tm.to(dev)
-            if (h, w) == (H, W):
-                timed[fill_only] = (dl, dm)
-            for _ in range(2):
-                want, want_flag = propagate.propagate_rounds_ref(tl, tm, fill_only)
-                got, flag = propagate.propagate_rounds(dl, dm, fill_only)
-                err = int((got.cpu().long() - want.long()).abs().max())
-                check(err == 0, "propagate %dx%d fill_only=%s differs from the plain version"
-                      % (h, w, fill_only))
-                check(int(flag.item()) == int(want_flag.item()),
-                      "propagate %dx%d fill_only=%s: changed flag" % (h, w, fill_only))
-                max_err = max(max_err, err)
-                tl, dl = want, got
-            before = propagate.launches
-            got = propagate.spread_labels_fixpoint(dl, dm, fill_only)
-            calls["%dx%d %s" % (h, w, "fill" if fill_only else "cc")] = propagate.launches - before
-            want = propagate.spread_labels_fixpoint(tl, tm, fill_only)
-            check(torch.equal(got.cpu(), want), "fixpoint %dx%d fill_only=%s differs from the "
-                  "CPU run" % (h, w, fill_only))
-    times = {}
-    for fill_only, (dl, dm) in timed.items():
-        times[fill_only] = (
-            cuda_ms(lambda: propagate.propagate_rounds(dl, dm, fill_only)),
-            cuda_ms(lambda: propagate.propagate_rounds_ref(dl, dm, fill_only)),
-        )
+    for name, fill_only, labels, mask in cases:
+        tl, tm = torch.from_numpy(labels), torch.from_numpy(mask)
+        dl, dm = tl.to(dev), tm.to(dev)
+        if name == "%dx%d" % (H, W):
+            timed[fill_only] = (dl, dm)
+        for _ in range(2):
+            want, want_flag = propagate.propagate_rounds_ref(tl, tm, fill_only)
+            got, flag = propagate.propagate_rounds(dl, dm, fill_only)
+            err = int((got.cpu().long() - want.long()).abs().max())
+            check(err == 0, "propagate %s fill_only=%s differs from the plain version"
+                  % (name, fill_only))
+            check(int(flag.item()) == int(want_flag.item()),
+                  "propagate %s fill_only=%s: changed flag" % (name, fill_only))
+            max_err = max(max_err, err)
+            tl, dl = want, got
+        before = propagate.launches
+        got = propagate.spread_labels_fixpoint(dl, dm, fill_only)
+        calls["%s %s" % (name, "fill" if fill_only else "cc")] = propagate.launches - before
+        want = propagate.spread_labels_fixpoint(tl, tm, fill_only)
+        check(torch.equal(got.cpu(), want), "fixpoint %s fill_only=%s differs from the "
+              "CPU run" % (name, fill_only))
     say("K2", "propagate_rounds == plain (labels and flag) on both rules at %s; max_abs_err %d"
-        % (", ".join("%dx%d" % s for s in shapes), max_err))
+        % (", ".join(dict.fromkeys(c[0] for c in cases)), max_err))
     say("K2", "fixpoint on the card == its CPU run everywhere; launches to the fixpoint: %s"
         % ", ".join("%s %d" % kv for kv in calls.items()))
-    for fill_only in (True, False):
-        say("K2", "%dx%d %s rule: kernel %.4f ms, plain %.4f ms per 16-round call on %s"
-            % ((H, W, "fill" if fill_only else "CC") + times[fill_only] + (card,)))
-    return {"max_abs_err": max_err, "ms": times[True][0], "plain_ms": times[True][1]}
+    rows = {}
+    for fill_only, (dl, dm) in timed.items():
+        out = torch.empty_like(dl)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        rows[fill_only] = kernel_row(
+            "K2", "%dx%d nested text-like, %s rule, one 16-round launch"
+            % (H, W, "fill" if fill_only else "CC"), "propagate_rounds",
+            kernel_ms(lambda: propagate.launch(dl, dm, out, flag, fill_only)),
+            cuda_ms(lambda: propagate.propagate_rounds(dl, dm, fill_only)),
+            cuda_ms(lambda: propagate.propagate_rounds_ref(dl, dm, fill_only)),
+            H * W * 9 + 4,  # int32 labels and uint8 mask in, int32 labels and the flag out
+            # 16 rounds of 4 max, a test and a select on each masked pixel
+            propagate.ROUNDS * 6 * int(dm.sum()),
+            int32_rate, card)
+    return dict(rows[True], max_abs_err=max_err)  # the main path runs the fill rule
 
 
 def phase_front_half(dev):
@@ -834,8 +969,9 @@ def device_time(fn, call_s):
     """Card time of one call of `fn` from a torch.profiler trace: the time of
     the kernels and copies on the card summed (work that overlaps counts
     twice), as a share of `call_s`, the same call's unprofiled wall time,
-    and the five kernels that take the most. Host-side op events, which
-    carry their kernels' time too, are left out."""
+    the five kernels that take the most, and the port's own kernels with
+    the records the trace holds of them (the tracer can drop some). Host-side
+    op events, which carry their kernels' time too, are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -850,9 +986,13 @@ def device_time(fn, call_s):
     if busy_ms == 0:
         return "the trace holds no device time: not measured"
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
-    return "card busy %.1f ms of a %.1f ms call (%.1f%%); most: %s" % (
+    ours = [e for e in events if "runmax_" in e.key or "propagate_tile" in e.key]
+    return "card busy %.1f ms of a %.1f ms call (%.1f%%); most: %s; the port's kernels: %s" % (
         busy_ms, call_s * 1e3, 100.0 * busy_ms / (call_s * 1e3),
         "; ".join("%s %.2f ms" % (e.key[:60], e.self_device_time_total / 1e3) for e in top),
+        "; ".join("%s %.3f ms over %d records" % (
+            e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1],
+            e.self_device_time_total / 1e3, e.count) for e in ours) or "none traced",
     )
 
 
@@ -903,6 +1043,13 @@ def stage_breakdown(deter, pages, kind, recer=None):
     return ", ".join("%s %.1f ms" % (k, v * 1e3) for k, v in times.items())
 
 
+def forbidden_modules():
+    """Modules of JAX, flax or the JAX package that this process loaded: the
+    port and this script import none of them."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "pytorchocr_tpu"))
+
+
 def main():
     try:
         import torch
@@ -921,36 +1068,34 @@ def main():
     say("device", "torch.cuda: %s; nvidia-smi: %s; torch %s, CUDA %s"
         % (torch.cuda.get_device_name(0), card, torch.__version__, torch.version.cuda))
     t0 = time.perf_counter()
-    k1 = phase_kernels(dev, card)
-    k2 = phase_propagate(dev, card)
+    int32_rate = int32_ops_per_s()
+    k1 = phase_kernels(dev, card, int32_rate)
+    k2 = phase_propagate(dev, card, int32_rate)
     phase_front_half(dev)
     with tempfile.TemporaryDirectory() as tmp:
         pages = make_pages(tmp)
         db_k1, rec_pt = phase_slice(dev, card, tmp, pages)
         pse_k1, pse_k2 = phase_pse(dev, card, tmp, pages, rec_pt)
         pan_k1 = phase_pan(dev, card, tmp, pages)
-    bad = [m for m in ("jax", "flax") if m in sys.modules]
+    bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
     say("done", "main-path launches: K1 %d (DB %d, PSE %d, PAN %d), K2 %d (PSE); all phases "
         "%.1f s" % (db_k1 + pse_k1 + pan_k1, db_k1, pse_k1, pan_k1, pse_k2,
                     time.perf_counter() - t0))
 
-    kernels = [
-        dict({
-            "name": "segmented_runmax",
-            "route": "cuda",
-            "source": "pytorchocr_tpu_torch/csrc/runmax.cu",
-            "replaces": "pytorchocr_tpu/ops/pallas_propagate.py:195",
-            "launches": db_k1 + pse_k1 + pan_k1,
-        }, **k1),
-        dict({
-            "name": "propagate_rounds",
-            "route": "cuda",
-            "source": "pytorchocr_tpu_torch/csrc/propagate.cu",
-            "replaces": "pytorchocr_tpu/ops/pallas_propagate.py:41",
-            "launches": pse_k2,
-        }, **k2),
-    ]
+    kernels = []
+    for name, source, replaces, launches, row in (
+        ("segmented_runmax", "runmax.cu", 195, db_k1 + pse_k1 + pan_k1, k1),
+        ("propagate_rounds", "propagate.cu", 41, pse_k2, k2),
+    ):
+        kernels.append(dict(
+            name=name, route="cuda", source="pytorchocr_tpu_torch/csrc/" + source,
+            replaces="pytorchocr_tpu/ops/pallas_propagate.py:%d" % replaces,
+            launches=launches, max_abs_err=row["max_abs_err"], ms=row["device_ms"],
+            device_ms=row["device_ms"], wrapper_ms=row["wrapper_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            library_note=NO_LIBRARY[name],
+        ))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

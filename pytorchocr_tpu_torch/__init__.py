@@ -19,10 +19,14 @@ Layouts: modules are NCHW `nn.Module`s (channels_last on CUDA); the public
 functions keep the JAX layouts (HWC image batches in, (N, H, W, 1) DB maps,
 (N, T, C) CTC probabilities, (H, W) label maps).
 
-Nothing here imports jax or flax. The JAX package's framework-free host code
-(data transforms, geometry, config loading, the character tables) is reused
-by import. CUDA kernels are compiled with nvcc at first use (`_kernels.py`),
-so importing this package needs neither a card nor a compiler.
+Nothing here imports jax, flax or any module of the JAX package. The host
+code the port runs has its own copy here, each function marked with its
+origin: config loading (`utils/config.py`), geometry (`utils/geometry.py`),
+reading order and crops (`utils/utility.py`), the dictionary path
+(`utils/assets.py`), the eval data ops (`data/`), the DB host path, the CTC
+character table and the host PSE/PAN expansions (`postprocess/`). CUDA
+kernels are compiled with nvcc at first use (`_kernels.py`), so importing
+this package needs neither a card nor a compiler.
 """
 
 __version__ = "0.1.0"

@@ -25,10 +25,10 @@ NVCC_FLAGS = [
 _loaded = {}
 build_log = {}  # name -> (seconds, nvcc's stderr with the -Xptxas -v report)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: name -> (symbol, argtypes)
 SIGNATURES = {
-    "runmax": ("runmax_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "runmax": ("runmax_launch", [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "propagate": ("propagate_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
@@ -93,3 +93,15 @@ def load(name):
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return _loaded[name]
+
+
+def call(fn, device, *args):
+    """Call the C entry point `fn` with `device` current. The device context
+    is entered only when another card is current: it costs host time on
+    every launch."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)

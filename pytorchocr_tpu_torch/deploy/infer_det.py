@@ -12,11 +12,10 @@ from pathlib import Path
 import cv2
 import numpy as np
 
-from pytorchocr_tpu.data import create_operators, transform
-from pytorchocr_tpu.utils.config import load_config
-from pytorchocr_tpu.utils.utility import sort_boxes
-
+from ..data import create_operators, transform
 from ..postprocess import build_post_process
+from ..utils.config import load_config
+from ..utils.utility import sort_boxes
 from .common import build_runner, padded_pow2_batch
 
 MAX_BS = 16

@@ -11,10 +11,9 @@ from pathlib import Path
 import cv2
 import numpy as np
 
-from pytorchocr_tpu.data import create_operators, transform
-from pytorchocr_tpu.utils.config import load_config
-
+from ..data import create_operators, transform
 from ..postprocess import build_post_process
+from ..utils.config import load_config
 from .common import build_runner, padded_pow2_batch
 from .infer_det import add_device_arg, list_images
 

@@ -18,8 +18,7 @@ from pathlib import Path
 import cv2
 import numpy as np
 
-from pytorchocr_tpu.utils.utility import get_part_img
-
+from ..utils.utility import get_part_img
 from .infer_det import Deter, add_device_arg, list_images
 from .infer_rec import Recer
 

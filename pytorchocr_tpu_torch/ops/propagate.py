@@ -64,18 +64,24 @@ def propagate_rounds(labels, mask, fill_only):
     if device.type != "cuda":
         raise NotImplementedError("propagate_rounds: no kernel for %s" % device)
 
+    out = torch.empty_like(labels)
+    changed = torch.empty(1, dtype=torch.int32, device=device)
+    launch(labels, mask, out, changed, fill_only)
+    return out, changed
+
+
+def launch(labels, mask, out, changed, fill_only):
+    """One launch of the kernel into `out` and `changed` (which the kernel
+    zeroes first), on CUDA tensors that `propagate_rounds` has checked and
+    allocated: no checks, no allocation."""
     global launches
     fn = _kernels.load("propagate")
-    out = torch.empty_like(labels)
-    changed = torch.zeros(1, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(labels.data_ptr(), mask.data_ptr(), out.data_ptr(), changed.data_ptr(),
-                 shape[0], shape[1], int(bool(fill_only)), stream)
+    err = _kernels.call(fn, labels.device, labels.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                        changed.data_ptr(), labels.shape[0], labels.shape[1],
+                        int(bool(fill_only)), torch.cuda.current_stream(labels.device).cuda_stream)
     if err != 0:
         raise RuntimeError("propagate kernel launch failed: cudaError %d" % err)
     launches += 1
-    return out, changed
 
 
 def spread_labels_fixpoint(labels, mask, fill_only=True):

@@ -17,6 +17,10 @@ from .. import _kernels
 
 launches = 0  # kernel launches (only where the CUDA kernel is launched)
 
+# rows of one block of the axis-0 kernel (csrc/runmax.cu: kMaxSegs * kSegRows);
+# taller maps need a scratch buffer for the blocks' run summaries
+BLOCK_ROWS = 2048
+
 
 def segmented_runmax_ref(vals, mask, axis):
     """Plain PyTorch version: each run gets an id (a cumsum over run starts),
@@ -76,21 +80,31 @@ def segmented_runmax(vals, mask, axis, prev=None):
     if device.type != "cuda":
         raise NotImplementedError("segmented_runmax: no kernel for %s" % device)
 
+    out = torch.empty_like(vals)
+    changed = None if prev is None else torch.empty(1, dtype=torch.int32, device=device)
+    scratch = None
+    if axis == 0 and shape[0] > BLOCK_ROWS:
+        scratch = torch.empty(3 * -(-shape[0] // BLOCK_ROWS) * shape[1], dtype=torch.int32,
+                              device=device)
+    launch(vals, mask, out, axis, prev, changed, scratch)
+    return out if prev is None else (out, changed)
+
+
+def launch(vals, mask, out, axis, prev=None, changed=None, scratch=None):
+    """One launch of the kernel into `out` (and `changed`, which the kernel
+    zeroes first), on CUDA tensors that `segmented_runmax` has checked and
+    allocated: no checks, no allocation."""
     global launches
     fn = _kernels.load("runmax")
-    out = torch.empty_like(vals)
-    changed = None
-    if prev is not None:
-        changed = torch.zeros(1, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            vals.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            None if prev is None else prev.data_ptr(),
-            None if changed is None else changed.data_ptr(),
-            shape[0], shape[1], axis, stream,
-        )
+    err = _kernels.call(
+        fn, vals.device, vals.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        None if prev is None else prev.data_ptr(),
+        None if changed is None else changed.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(),
+        vals.shape[0], vals.shape[1], axis,
+        torch.cuda.current_stream(vals.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError("runmax kernel launch failed: cudaError %d" % err)
     launches += 1
-    return out if prev is None else (out, changed)

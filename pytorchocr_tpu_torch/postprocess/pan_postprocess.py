@@ -7,17 +7,16 @@ embeddings masked by the text, and ops/cc_label.py:pa_aggregate_device per
 image (K1 labels the components). The labels and the score cross to the
 host, are resized to the page by cv2 INTER_NEAREST when scale != 1, and
 pse_postprocess.generate_box makes the boxes. `use_device_aggregate=False`
-aggregates on the host with the JAX package's framework-free `pa_np`.
+aggregates on the host with `host_expand.pa_np` (the port's copy).
 """
 
 import cv2
 import numpy as np
 import torch
 
-from pytorchocr_tpu.ops.propagate import pa_np
-
 from ..modeling.common import resize_nearest
 from ..ops.cc_label import pa_aggregate_device
+from .host_expand import pa_np
 from .pse_postprocess import as_maps, generate_box
 
 __all__ = ["PANPostProcess"]

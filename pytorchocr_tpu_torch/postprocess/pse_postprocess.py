@@ -7,19 +7,18 @@ ops/cc_label.py:pse_expand_device per image (K1 and K2 on the card). Then
 the int32 labels and the float32 score cross to the host at once, and
 `generate_box` (a copy of the JAX host loop: label == i in raster order, the
 min_area and box_thresh filters, minAreaRect or the out_polygon contour)
-makes the boxes. `use_device_expand=False` expands on the host with the JAX
-package's framework-free `pse_np` instead.
+makes the boxes. `use_device_expand=False` expands on the host with
+`host_expand.pse_np` (the port's copy of the JAX package's) instead.
 """
 
 import cv2
 import numpy as np
 import torch
 
-from pytorchocr_tpu.ops.propagate import pse_np
-from pytorchocr_tpu.utils.geometry import order_points_clockwise
-
 from ..modeling.common import resize_nearest
 from ..ops.cc_label import pse_expand_device
+from ..utils.geometry import order_points_clockwise
+from .host_expand import pse_np
 
 __all__ = ["PSEPostProcess", "generate_box"]
 

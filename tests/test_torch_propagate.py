@@ -116,20 +116,49 @@ def test_wrapper_checks_and_counter():
     assert out.dtype == changed.dtype == torch.int32 and int(changed) == 0
 
 
-@pytest.mark.cuda
-def test_propagate_kernel_matches_ref_on_card(cuda_device):
+def _card_case(name, fill_only):
+    """(labels, mask) of the card cases: the kernel's edge paths."""
     rng = np.random.RandomState(11)
-    for h, w in [(736, 1280), (184, 320), (97, 1001), (4096, 256), (1, 5000), (1, 1)]:
-        for fill_only in (True, False):
-            labels, mask = _case(rng, h, w, fill_only, seeds=0.002)
-            tl, tm = torch.from_numpy(labels), torch.from_numpy(mask)
-            dl, dm = tl.to(cuda_device), tm.to(cuda_device)
-            for _ in range(2):  # the flag set mid-way, then perhaps clear
-                want, want_changed = propagate.propagate_rounds_ref(tl, tm, fill_only)
-                got, changed = propagate.propagate_rounds(dl, dm, fill_only)
-                np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-                assert int(changed.item()) == int(want_changed.item())
-                tl, dl = want, got
-            want = propagate.spread_labels_fixpoint(tl, tm, fill_only)
-            got = propagate.spread_labels_fixpoint(dl, dm, fill_only)
-            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    shapes = {"736x1280": (736, 1280), "184x320": (184, 320), "97x1001": (97, 1001),
+              "4096x256": (4096, 256), "1x5000": (1, 5000), "1x1": (1, 1)}
+    if name in shapes:
+        return _case(rng, *shapes[name], fill_only, seeds=0.002)
+    if name == "empty mask":  # every tile skips its rounds
+        return (np.arange(130 * 300, dtype=np.int32).reshape(130, 300) % 7,
+                np.zeros((130, 300), bool))
+    if name == "round 16 only":
+        # runs 16 pixels from their seed, one inside a tile's interior, one
+        # across a tile edge: only round 16 reaches their last pixel
+        labels, mask = np.zeros((130, 300), np.int32), np.zeros((130, 300), bool)
+        for y, x0, seed in ((70, 40, 5), (10, 50, 7), (100, 120, 9)):
+            mask[y, x0:x0 + 17] = True
+            labels[y, x0] = seed
+        return labels, mask
+    # lone seeds in a full mask: tiles far from them stop early, the others
+    # run on
+    labels = np.zeros((200, 200), np.int32)
+    labels[[5, 150], [5, 120]] = [11, 4]
+    return labels, np.ones((200, 200), bool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["736x1280", "184x320", "97x1001", "4096x256", "1x5000", "1x1",
+                                  "empty mask", "round 16 only", "lone seeds"])
+@pytest.mark.parametrize("fill_only", [True, False])
+def test_propagate_kernel_matches_ref_on_card(cuda_device, case, fill_only):
+    labels, mask = _card_case(case, fill_only)
+    tl, tm = torch.from_numpy(labels), torch.from_numpy(mask)
+    dl, dm = tl.to(cuda_device), tm.to(cuda_device)
+    flags = []
+    for _ in range(2):  # the flag set mid-way, then perhaps clear
+        want, want_changed = propagate.propagate_rounds_ref(tl, tm, fill_only)
+        got, changed = propagate.propagate_rounds(dl, dm, fill_only)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        assert int(changed.item()) == int(want_changed.item())
+        flags.append(int(want_changed.item()))
+        tl, dl = want, got
+    if case == "round 16 only":
+        assert flags == [1, 0]
+    want = propagate.spread_labels_fixpoint(tl, tm, fill_only)
+    got = propagate.spread_labels_fixpoint(dl, dm, fill_only)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -92,20 +92,60 @@ def test_spread_labels_scan_matches_jax():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.cuda
-def test_runmax_kernel_matches_ref_on_card(cuda_device):
+def _card_case(name):
+    """(vals, mask) of the card cases: the kernels' edge paths."""
     rng = np.random.RandomState(11)
-    for h, w in [(736, 1280), (37, 301), (4096, 256), (64, 20000), (1, 1)]:
-        vals, mask = _case(rng, h, w)
-        tv, tm = torch.from_numpy(vals), torch.from_numpy(mask)
-        dv, dm = tv.to(cuda_device), tm.to(cuda_device)
-        for axis in (0, 1):
-            want = runmax.segmented_runmax_ref(tv, tm, axis)
-            got = runmax.segmented_runmax(dv, dm, axis)
-            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-        want = runmax.segmented_runmax_ref(tv, tm, 0)
-        got, changed = runmax.segmented_runmax(dv, dm, 0, prev=dv)
+    shapes = {"736x1280": (736, 1280), "37x301 W not a multiple of 4": (37, 301),
+              "97x1001": (97, 1001), "8x2048 widest held row": (8, 2048),
+              "8x2049 chunked row loop": (8, 2049), "64x20000 chunked row loop": (64, 20000),
+              "2048x64 one row block": (2048, 64), "2049x3 two row blocks": (2049, 3),
+              "4096x256 row blocks": (4096, 256), "1x5000": (1, 5000), "5000x1": (5000, 1),
+              "1x1": (1, 1)}
+    if name in shapes:
+        return _case(rng, *shapes[name])
+    mask = np.full((736, 1280), name == "all masked")
+    return np.where(mask, rng.randint(1, 1 << 20, mask.shape), 0).astype(np.int32), mask
+
+
+CARD_CASES = ["736x1280", "37x301 W not a multiple of 4", "97x1001", "8x2048 widest held row",
+              "8x2049 chunked row loop", "64x20000 chunked row loop", "2048x64 one row block",
+              "2049x3 two row blocks", "4096x256 row blocks", "1x5000", "5000x1", "1x1",
+              "all masked", "empty"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("offset", [False, True])
+def test_runmax_kernel_matches_ref_on_card(cuda_device, case, offset):
+    """Both axes and the axis-0 flag, exactly. With `offset` the map is a
+    contiguous view one row into a larger buffer, so rows start unaligned
+    where W is odd (the held-row kernel's scalar path)."""
+    vals, mask = _card_case(case)
+    tv, tm = torch.from_numpy(vals), torch.from_numpy(mask)
+    dv, dm = tv.to(cuda_device), tm.to(cuda_device)
+    if offset:
+        dv = torch.cat([dv[:1], dv])[1:]
+        dm = torch.cat([dm[:1], dm])[1:]
+    for axis in (0, 1):
+        want = runmax.segmented_runmax_ref(tv, tm, axis)
+        got = runmax.segmented_runmax(dv, dm, axis)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-        assert int(changed.item()) == int((want != tv).any())
-        _, same = runmax.segmented_runmax(got, dm, 0, prev=got)
-        assert int(same.item()) == 0
+    want = runmax.segmented_runmax_ref(tv, tm, 0)
+    got, changed = runmax.segmented_runmax(dv, dm, 0, prev=dv)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert int(changed.item()) == int((want != tv).any())
+    _, same = runmax.segmented_runmax(got, dm, 0, prev=got)
+    assert int(same.item()) == 0
+
+
+@pytest.mark.cuda
+def test_spread_labels_scan_on_card(cuda_device):
+    """The fixpoint of alternations on the card against its CPU run."""
+    rng = np.random.RandomState(13)
+    for h, w, p in [(736, 1280, 0.45), (97, 1001, 0.4), (2500, 40, 0.4)]:
+        binary = rng.rand(h, w) > p
+        seed = np.where(binary, np.arange(h * w).reshape(h, w) + 1, 0).astype(np.int32)
+        want = cc_label.spread_labels_scan(torch.from_numpy(seed), torch.from_numpy(binary))
+        got = cc_label.spread_labels_scan(torch.from_numpy(seed).to(cuda_device),
+                                          torch.from_numpy(binary).to(cuda_device))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -183,13 +183,15 @@ def test_slice_matches_jax_run_many(slice_setup, jax_result):
 
 
 def test_cli_writes_res_txt(slice_setup, jax_result):
-    """The port's CLI on the CPU writes the JAX CLI's res_*.txt rows."""
+    """The port's CLI on the CPU writes the JAX CLI's res_*.txt rows, and
+    loads no module of jax, flax or the JAX package."""
     s = slice_setup
     out = s["tmp"] / "cli_out"
     script = (
         "import sys; sys.argv = sys.argv[:1] + sys.argv[2:];"
         "from pytorchocr_tpu_torch.deploy import run_ocr; run_ocr.main();"
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules];"
+        "bad = [m for m in sys.modules"
+        "       if m.split('.')[0] in ('jax', 'flax', 'pytorchocr_tpu')];"
         "assert not bad, bad"
     )
     cmd = [sys.executable, "-c", script, "--",
