@@ -36,14 +36,35 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      page timed level by level;
   7. the PAN det path: Deter.run_batch with det_r18_pan.yml (ResNet-18,
      FPEM_FFM v2 128 x2, PANHead 128 -> 6) with the float32 box checks over
-     the text and kernel maps, then the bf16 run, counted and timed.
+     the text and kernel maps, then the bf16 run, counted and timed;
+  8. the int8 DB slice: OCRer(det_quant=True).run_many on the DB slice's
+     checkpoints and pages, calibrated on the first 2 pages. On the CPU,
+     then float32 on the card with its own calibration (reported against
+     the CPU's) and again with the CPU's: boxes and texts as in phase 5,
+     and the int8 elements of the fused map that differ. Then the bf16
+     default, the main-path run whose int8-conv and K1 launches are
+     counted and timed; its prob maps held against the float bf16 ones by
+     the bound tests/test_quant.py sets for an untrained DB model (mean
+     |int8 - float| < 0.05), its boxes reported against phase 5's by hmean
+     (rectangle IoU >= 0.5);
+  9. the int8 conv kernel (csrc/int8_conv.cu) against its plain version,
+     exactly, on every QuantConv call of one 4-page bf16 int8 DB-ResNet18
+     forward (collected by wrapping the wrapper) and on edge shapes; per
+     distinct shape its device-only, wrapper, plain, torch._int_mm (1x1
+     stride-1 shapes: the same int32 product) and cuDNN bf16 conv times and
+     its bound (2 x MACs at 1,979 int8 TOP/s or bytes at 3.35 TB/s);
+ 10. the direction classifier: OCRer with a seeded cls_mbv3small.yml (its
+     fc made decisive on the DB slice's crops) on the CPU and float32 on the
+     card: equal labels (but a crop whose |p - 0.5| lies within the
+     probabilities' difference), boxes and texts as in phase 5; the bf16
+     run timed with a Cls stage.
 Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
 {"kernels": [...]} (device_ms, wrapper_ms, plain_ms, bound_ms, bound_by,
-library_ms: null with its reason, launches), the last one the contract
-{"ok": true, "device": {...}}. Without a card, or outside a checkout, it
-exits non-zero and prints no result.
+library_ms, launches), the last one the contract {"ok": true, "device":
+{...}}. Without a card, or outside a checkout, it exits non-zero and prints
+no result.
 """
 
 import json
@@ -61,6 +82,7 @@ DET_CFG = os.path.join(REPO, "configs", "det", "det_r18_db.yml")
 REC_CFG = os.path.join(REPO, "configs", "rec", "rec_vgg_bilstm_ctc.yml")
 PSE_CFG = os.path.join(REPO, "configs", "det", "det_r50_pse.yml")
 PAN_CFG = os.path.join(REPO, "configs", "det", "det_r18_pan.yml")
+CLS_CFG = os.path.join(REPO, "configs", "cls", "cls_mbv3small.yml")
 
 
 def say(phase, msg):
@@ -136,6 +158,7 @@ def kernel_ms(launch, iters=100, sessions=5):
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
 
 
 def int32_ops_per_s():
@@ -575,8 +598,8 @@ def phase_slice(dev, card, tmp, pages):
         launches0 = runmax.launches
         f32 = flat(ocr32.run_many(pages))
         check(runmax.launches > launches0, "the float32 slice launched no run-max kernel")
-        pairs = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
-                              box_lists(f32), margin)
+        pairs, f32_diff = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+                                        box_lists(f32), margin)
         compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs)
         secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("slice-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off; %d pages of %dx%d, "
@@ -611,7 +634,8 @@ def phase_slice(dev, card, tmp, pages):
         % (PAGES / secs, lines16 / secs, PAGES, H, W, reps, card))
     say("slice-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
     say("slice-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
-    return launches, rec_pt
+    return launches, dict(det_pt=det_pt, rec_pt=rec_pt, margin=margin, cpu=cpu, bf16=bf16,
+                          pages_per_s=PAGES / secs, f32_diff=f32_diff)
 
 
 def pse_expansion_report(deter, pages):
@@ -685,8 +709,9 @@ def phase_pse(dev, card, tmp, pages, rec_pt):
         f32 = flat(ocr32.run_many(pages))
         check(runmax.launches > before[0] and propagate.launches > before[1],
               "the float32 PSE slice did not launch both kernels")
-        pairs = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu), box_lists(f32),
-                              margins, tag="pse-f32", channels=range(7), components=True)
+        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+                                 box_lists(f32), margins, tag="pse-f32", channels=range(7),
+                                 components=True)
         compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="pse-f32")
         secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("pse-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off; %d pages of %dx%d, "
@@ -777,6 +802,322 @@ def phase_pan(dev, card, tmp, pages):
     return launches
 
 
+def _absmax_state(model):
+    """{name: value} of every calibrated AbsMax module of `model`, on the CPU."""
+    from pytorchocr_tpu_torch.ops.quant import AbsMax
+
+    return {n: m.value.detach().cpu() for n, m in model.named_modules()
+            if isinstance(m, AbsMax) and m.calibrated}
+
+
+INT8_STAGES = ("backbone.stem", "backbone.layer1_block1", "backbone.layer2_block1",
+               "backbone.layer3_block1", "backbone.layer4_block1", "neck")
+
+
+def _int8_payloads(deter, pages):
+    """The int8 payloads of INT8_STAGES (the stem, each stage's last block,
+    the FPN's fused map) over `pages`, as int32 on the CPU."""
+    import torch
+
+    seen, hooks = {}, []
+    mods = dict(deter.runner.model.named_modules())
+
+    def keep(name):
+        def hook(mod, inp, out):  # returns None: the module's output stays as it is
+            seen[name] = out.q.to(torch.int32).cpu()
+        return hook
+
+    for name in INT8_STAGES:
+        hooks.append(mods[name].register_forward_hook(keep(name)))
+    try:
+        deter.runner(_det_batch(deter, pages)[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def hmean(runs, refs):
+    """hmean of two runs' boxes matched one to one by rectangle IoU >= 0.5
+    (match_iou)."""
+    matched, _ = match_iou(runs, refs)
+    total = sum(len(p) for p in runs) + sum(len(p) for p in refs)
+    return 2.0 * matched / total if total else 1.0
+
+
+def phase_int8_slice(dev, card, pages, db):
+    """The int8 DB slice on the DB slice's checkpoints `db` (phase_slice's).
+    Returns the main-path run's (int8 conv, K1) launches, the bf16 int8
+    OCRer and its pages/s."""
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
+    from pytorchocr_tpu_torch.ops import int8_conv, runmax
+    from pytorchocr_tpu_torch.utils.weights import load_absmax
+
+    det_cfg, rec_cfg, reps = DET_CFG, REC_CFG, 5
+    args = (det_cfg, db["det_pt"], rec_cfg, db["rec_pt"])
+    t0 = time.perf_counter()
+    ocr_cpu = OCRer(*args, det_quant=True, device="cpu")
+    cpu = flat(ocr_cpu.run_many(pages))  # calibrates on the first half of the pages
+    cpu_s = time.perf_counter() - t0
+    check(ocr_cpu.deter.runner.quant, "the int8 slice did not calibrate on the CPU")
+    check(sum(len(p) for p in cpu) > 0, "the int8 slice found no text boxes on the CPU")
+    cpu_state = _absmax_state(ocr_cpu.deter.runner.model)
+
+    with float32_on_card():
+        ocr32 = OCRer(*args, det_quant=True, device=dev, dtype=torch.float32)
+        before = int8_conv.launches
+        ocr32.run_many(pages)  # its own calibration
+        check(int8_conv.launches > before, "the float32 int8 slice launched no int8 conv kernel")
+        own = _absmax_state(ocr32.deter.runner.model)
+        check(sorted(own) == sorted(cpu_state), "card and CPU calibrated different modules")
+        rel = max(float((own[k] - cpu_state[k]).abs() / cpu_state[k].abs().clamp_min(1e-12))
+                  for k in own)
+        say("int8-f32", "the card's calibration (float32, TF32 off) against the CPU's: %d absmax, "
+            "largest relative difference %.3g" % (len(own), rel))
+        load_absmax(ocr32.deter.runner.model, cpu_state)  # the CPU's scales from here on
+        f32 = flat(ocr32.run_many(pages))
+        q_cpu, q_gpu = _int8_payloads(ocr_cpu.deter, pages), _int8_payloads(ocr32.deter, pages)
+        report = []
+        for name in INT8_STAGES:
+            d = (q_cpu[name] - q_gpu[name]).abs()
+            report.append("%s %d of %d (%.4f%%, %d by one, at most %d)" % (
+                name, int((d > 0).sum()), d.numel(), 100.0 * float((d > 0).float().mean()),
+                int((d == 1).sum()), int(d.max())))
+        say("int8-f32", "with the CPU's calibration, int8 elements that differ from the CPU's: %s"
+            % "; ".join(report))
+        check(int((q_cpu["backbone.stem"] - q_gpu["backbone.stem"]).abs().max()) <= 1,
+              "the stem's int8 output differs from the CPU's by more than a quantum")
+        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+                                 box_lists(f32), db["margin"], tag="int8-f32",
+                                 moved=2 * db["f32_diff"])
+        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="int8-f32")
+        say("int8-f32", "card against CPU, both int8: hmean %.4f (rectangle IoU >= 0.5)"
+            % hmean(f32, cpu))
+        secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
+        say("int8-f32", "%.3f pages/s, %.1f lines/s (int8 det, float32 compute; %d pages of %dx%d, "
+            "mean of %d runs) on %s; the cpu's first call %.1f s"
+            % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps, card, cpu_s))
+    del ocr32, ocr_cpu
+
+    ocr = OCRer(*args, det_quant=True, device=dev)  # bf16 default; run_many calibrates
+    int8_conv.launches = runmax.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q16 = flat(ocr.run_many(pages))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = int8_conv.launches, runmax.launches
+    check(launches[0] > 0, "the int8 main-path run launched no int8 conv kernel")
+    check(launches[1] > 0, "the int8 main-path run launched no run-max kernel")
+    # int8 against float, both bf16, on the same batch: the JAX package's
+    # bound for int8 prob maps of an untrained DB model (tests/test_quant.py:
+    # mean |int8 - float| < 0.05), then the boxes
+    batch = _det_batch(ocr.deter, pages)[0]
+    m_int8 = ocr.deter.runner(batch)["maps"].float()
+    m_float = Deter(det_cfg, db["det_pt"], device=dev).runner(batch)["maps"].float()
+    err = float((m_int8 - m_float).abs().mean())
+    cc = float(torch.corrcoef(torch.stack([m_int8.flatten(), m_float.flatten()]))[0, 1])
+    check(bool(((m_int8 >= 0) & (m_int8 <= 1)).all()) and err < 0.05,
+          "int8 bf16 prob maps: mean |int8 - float| %.4f (bound 0.05)" % err)
+    h = hmean(q16, db["bf16"])
+    secs, lines = timed_runs(lambda: ocr.run_many(pages), reps)
+    busy = device_time(lambda: ocr.run_many(pages), secs)
+    say("int8-bf16", "main path: int8_conv.launches %d, runmax.launches %d; first call %.3f s on %s"
+        % (launches + (first_s, card)))
+    say("int8-bf16", "int8 against float, both bf16: prob maps mean |diff| %.4f (bound 0.05), "
+        "correlation %.4f; boxes hmean %.4f (%d and %d boxes, rectangle IoU >= 0.5), against the "
+        ">= 0.9 that tests/test_quant.py:258 sets for a trained detector: the seeded head puts its "
+        "threshold %.3g logits from the nearest pixel, and int8 moves the seeded boxes as far in "
+        "the JAX package (tests/test_torch_slice.py)" % (err, cc, h, sum(len(p) for p in q16),
+                                                        sum(len(p) for p in db["bf16"]),
+                                                        db["margin"]))
+    say("int8-bf16", "%.3f pages/s, %.1f lines/s (int8 det; %d pages of %dx%d, mean of %d runs) "
+        "against %.3f pages/s float bf16 (phase 5) on %s"
+        % (PAGES / secs, lines / secs, PAGES, H, W, reps, db["pages_per_s"], card))
+    say("int8-bf16", "stages per %d-page call: %s on %s"
+        % (PAGES, stage_breakdown(ocr.deter, pages, "db", ocr.recer), card))
+    say("int8-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
+    return launches, ocr
+
+
+def _conv_key(args):
+    xq, wq, _, bias, stride, padding, dilation, groups = args
+    n, cin, h, w = xq.shape
+    cout, kh, kw, _ = wq.shape
+    return (n, cin, h, w, cout, kh, kw, tuple(stride), tuple(padding), tuple(dilation), groups,
+            bias is not None)
+
+
+def phase_int8_conv(dev, card, ocr, pages):
+    """The int8 conv kernel against its plain version on every QuantConv
+    call of one bf16 int8 forward of `ocr`'s det model over `pages`, and on
+    edge shapes; times and bounds per distinct shape. Returns the JSON row's
+    numbers, summed over the forward's calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pytorchocr_tpu_torch.ops import int8_conv
+
+    calls = []
+    wrapped = int8_conv.int8_conv
+
+    def record(*args):
+        calls.append(args)
+        return wrapped(*args)
+
+    int8_conv.int8_conv = record
+    try:
+        ocr.deter.runner(_det_batch(ocr.deter, pages)[0])
+    finally:
+        int8_conv.int8_conv = wrapped
+    torch.cuda.synchronize()
+    check(len(calls) > 0, "the int8 forward made no int8 conv call")
+
+    max_err, shapes = 0.0, {}
+    for args in calls:
+        got, want = wrapped(*args), int8_conv.int8_conv_ref(*args)
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), "int8_conv differs from the plain version at %s: %g"
+              % (_conv_key(args), err))
+        max_err = max(max_err, err)
+        shapes.setdefault(_conv_key(args), []).append(args)
+    rng = np.random.RandomState(SEED + 6)
+    edge = [(2, 3, 23, 30, 16, 7, 2, 3, 1, 1), (1, 24, 9, 31, 10, 3, 1, 1, 1, 1),
+            (2, 16, 15, 17, 8, 3, 1, 2, 2, 1), (1, 32, 7, 9, 40, 3, 1, 1, 1, 1),
+            (2, 96, 24, 48, 96, 5, 1, 2, 1, 96), (2, 8, 10, 10, 6, 3, 1, 1, 1, 2)]
+    for n, cin, h, w, cout, k, st, pad, dil, g in edge:
+        xq = torch.from_numpy(rng.randint(-127, 128, (n, cin, h, w)).astype(np.int8)).to(dev)
+        xq = xq.contiguous(memory_format=torch.channels_last)
+        wq = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin // g)).astype(np.int8)).to(dev)
+        sc = torch.from_numpy((rng.rand(cout) * 1e-3).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(dev)
+        a = (xq, wq, sc, b, (st, st), (pad, pad), (dil, dil), g)
+        check(torch.equal(wrapped(*a), int8_conv.int8_conv_ref(*a)),
+              "int8_conv differs from the plain version at edge shape %s" % (_conv_key(a),))
+    say("int8", "int8_conv == plain (float32 bits) on all %d calls of the %d-page forward (%d "
+        "shapes) and %d edge shapes (Cin 3 and 24, dilation 2, Cout 40, depthwise, groups 2); "
+        "max_abs_err %g" % (len(calls), PAGES, len(shapes), len(edge), max_err))
+
+    total = dict(device_ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 cudnn_ms=0.0, by_ops=0.0, by_bytes=0.0)
+    library_shapes = 0
+    for key, group in shapes.items():
+        xq, wq, scale, bias, stride, padding, dilation, groups = group[0]
+        n, cin, h, w, cout, kh, kw = key[:7]
+        y = wrapped(*group[0])
+        m = y.shape[0] * y.shape[2] * y.shape[3]
+        k = kh * kw * cin // groups
+        ops = 2.0 * m * cout * k
+        nbytes = xq.numel() + wq.numel() + 4 * cout * (1 + (bias is not None)) + 4 * y.numel()
+        by_ops, by_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+        dev_ms, parts = kernel_ms(lambda: int8_conv.launch(xq, wq, scale, bias, y, stride, padding,
+                                                           dilation, groups), iters=50)
+        wrap_ms = cuda_ms(lambda: wrapped(*group[0]), iters=20)
+        plain_ms = cuda_ms(lambda: int8_conv.int8_conv_ref(*group[0]), iters=3, warmup=1)
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xb = xq.to(torch.bfloat16)
+        cudnn = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, padding, dilation, groups), iters=20)
+        lib = None
+        if (kh, kw, groups) == (1, 1, 1) and tuple(stride) == (1, 1) and bias is None:
+            a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin)  # (M, K) view of the NHWC payload
+            b2 = wq.reshape(cout, cin).t()  # (K, N), column-major
+            check(torch.equal(torch._int_mm(a2, b2).float() * scale,
+                              y.permute(0, 2, 3, 1).reshape(-1, cout)),
+                  "torch._int_mm's product differs from the kernel's at %s" % (key,))
+            lib = cuda_ms(lambda: torch._int_mm(a2, b2), iters=20)
+            library_shapes += len(group)
+        c = len(group)
+        say("int8", "N%d Cin%d %dx%d -> Cout%d %dx%d/%d (x%d in the forward): device %.4f ms (%s), "
+            "wrapper %.4f ms, plain %.4f ms; bound %.4f ms by %s (%.2f G int8 ops at 1,979 T/s = "
+            "%.4f ms, %.1f MB at 3.35 TB/s = %.4f ms), %.0f%% of the bound; library_ms %s; cuDNN "
+            "bf16 conv %.4f ms (context) on %s"
+            % (n, cin, h, w, cout, kh, kw, stride[0], c, dev_ms, parts, wrap_ms, plain_ms, bound,
+               bound_by, ops / 1e9, by_ops, nbytes / 1e6, by_bytes, 100.0 * bound / dev_ms,
+               "%.4f ms (torch._int_mm, int32 product)" % lib if lib is not None else
+               "none (no PyTorch call computes an int8 convolution on CUDA)", cudnn, card))
+        for name, v in (("device_ms", dev_ms), ("wrapper_ms", wrap_ms), ("plain_ms", plain_ms),
+                        ("bound_ms", bound), ("cudnn_ms", cudnn), ("by_ops", by_ops),
+                        ("by_bytes", by_bytes)):
+            total[name] += c * v
+        if lib is not None:
+            total["library_ms"] += c * lib
+    total["bound_by"] = "operations" if total["by_ops"] >= total["by_bytes"] else "bytes"
+    say("int8", "one %d-page forward, %d calls: device %.3f ms, wrapper %.3f ms, plain %.3f ms, "
+        "bound %.3f ms (%.0f%%), cuDNN bf16 %.3f ms; torch._int_mm %.3f ms over the %d 1x1 "
+        "stride-1 calls on %s" % (PAGES, len(calls), total["device_ms"], total["wrapper_ms"],
+                                  total["plain_ms"], total["bound_ms"],
+                                  100.0 * total["bound_ms"] / total["device_ms"], total["cudnn_ms"],
+                                  total["library_ms"], library_shapes, card))
+    total.update(max_abs_err=max_err, calls=len(calls), library_calls=library_shapes)
+    return total
+
+
+def phase_cls(dev, card, tmp, pages, db):
+    """The direction classifier on the DB slice (phase_slice's `db`): a
+    seeded cls_mbv3small.yml, its fc made decisive on the CPU crops."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_cls import Clser
+    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer, crop_lines
+    from pytorchocr_tpu_torch.utils.seeded import decisive_cls_head_, seeded_init_
+
+    parts = []
+    for path, page in zip(pages, db["cpu"]):
+        parts.extend(crop_lines(cv2.imread(path), [np.array(b).reshape(-1, 2) for b, _, _ in page]))
+    clser = Clser(CLS_CFG, None, device="cpu")
+    model = seeded_init_(clser.runner.model, torch.Generator().manual_seed(SEED + 7))
+    x = torch.from_numpy(np.stack([clser._prep(c) for c in parts])).permute(0, 3, 1, 2)
+    margin = decisive_cls_head_(model, x)
+    cls_pt = os.path.join(tmp, "cls.pt")
+    torch.save(model.state_dict(), cls_pt)
+    args = (DET_CFG, db["det_pt"], REC_CFG, db["rec_pt"], CLS_CFG, cls_pt)
+    ocr_cpu = OCRer(*args, device="cpu")
+    cpu = flat(ocr_cpu.run_many(pages))
+    p_cpu = ocr_cpu.clser.runner(np.stack([clser._prep(c) for c in parts])).float()
+    reps = 5
+    with float32_on_card():
+        ocr32 = OCRer(*args, device=dev, dtype=torch.float32)
+        f32 = flat(ocr32.run_many(pages))
+        p_gpu = ocr32.clser.runner(np.stack([clser._prep(c) for c in parts])).float().cpu()
+        diff = float((p_gpu - p_cpu).abs().max())
+        near = ((p_cpu[:, 1] - 0.5).abs() <= 2 * diff).tolist()
+        same = (p_gpu.argmax(1) == p_cpu.argmax(1)).tolist()
+        check(all(s or n for s, n in zip(same, near)),
+              "a cls label differs on the card at a crop far from p = 0.5")
+        n180 = int((p_cpu.argmax(1) == 1).sum())
+        say("cls-f32", "seeded cls (MobileNetV3 small x0.35 + ClsHead, fc decisive, nearest crop "
+            "%.3g logits from a tie): %d crops, %d labelled 180; probs max |cuda - cpu| %.3g, labels "
+            "equal on %d, %d within 2x that of 0.5" % (margin, len(parts), n180, diff, sum(same),
+                                                       sum(near)))
+        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+                                 box_lists(f32), db["margin"], tag="cls-f32")
+        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="cls-f32",
+                      excused={i for i, n in enumerate(near) if n})
+        secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
+        say("cls-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off, with cls; %d pages of "
+            "%dx%d, mean of %d runs) on %s" % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps,
+                                                card))
+    del ocr32, ocr_cpu
+    ocr = OCRer(*args, device=dev)  # bf16 default
+    ocr.run_many(pages)
+    secs, lines = timed_runs(lambda: ocr.run_many(pages), reps)
+    say("cls-bf16", "%.3f pages/s, %.1f lines/s (with cls; %d pages of %dx%d, mean of %d runs) "
+        "on %s" % (PAGES / secs, lines / secs, PAGES, H, W, reps, card))
+    say("cls-bf16", "stages per %d-page call: %s on %s"
+        % (PAGES, stage_breakdown(ocr.deter, pages, "db", ocr.recer, ocr.clser), card))
+    cls_s = timed_runs(lambda: [ocr.clser.run_batch(parts)], reps)[0]
+    say("cls-bf16", "Clser.run_batch on the %d crops: %.1f ms (mean of %d); profiler: %s on %s"
+        % (len(parts), cls_s * 1e3, reps, device_time(lambda: ocr.clser.run_batch(parts), cls_s),
+           card))
+
+
 def _det_batch(deter, pages):
     import cv2
     import numpy as np
@@ -786,7 +1127,7 @@ def _det_batch(deter, pages):
 
 
 def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", channels=(0,),
-                  components=False):
+                  components=False, moved=None):
     """Boxes of a float32 det path on the card against the CPU run (`cpu`,
     `f32`: one list of flat boxes per page). The two runs' maps agree to
     rounding, so a pixel whose value lies within that rounding of the
@@ -801,10 +1142,14 @@ def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", 
     grow against each other, so a flipped pixel can move the border between
     any two of them) a box whose rectangle meets the rectangle of a text
     component, on either run, that holds such a pixel is excused too; those
-    are counted apart. `margin` is the seeded head's distance of the
-    nearest pixel to the threshold, in logits (one per map for PSE/PAN).
+    are counted apart. With `moved` (int8: an int8 element a quantum apart
+    moves the maps by far more than float rounding, and a box's mean score
+    can cross box_thresh with no pixel binarized differently) a box whose
+    rectangle holds a pixel where the maps differ by more than `moved` is
+    excused too, counted apart. `margin` is the seeded head's distance of
+    the nearest pixel to the threshold, in logits (one per map for PSE/PAN).
     Returns the equal boxes as (page, cpu line, card line) triples, lines
-    counted over all pages."""
+    counted over all pages, and the maps' largest difference."""
     import cv2
     import numpy as np
     import torch
@@ -826,7 +1171,7 @@ def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", 
         check(torch.equal(torch.from_numpy(a["points"]), torch.from_numpy(b["points"])),
               "page %d: on the same map, cuda postprocess boxes != cpu" % i)
 
-    pairs, excused, by_component, flip_counts = [], 0, 0, []
+    pairs, excused, by_component, by_moved, flip_counts = [], 0, 0, 0, []
     base_cpu = base_gpu = 0
     height, width = m_cpu.shape[1:3]
     for i, (page_gpu, page_cpu) in enumerate(zip(f32, cpu)):
@@ -835,6 +1180,10 @@ def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", 
         flip_lo = np.stack([xs, ys], axis=1) * cell
         flip_hi = flip_lo + cell if components else flip_lo
         flip_counts.append(len(flip_lo))
+        moved_lo = np.zeros((0, 2))
+        if moved is not None:
+            my, mx = np.nonzero(((m_gpu[i] - m_cpu[i]).abs().amax(-1) > moved).numpy())
+            moved_lo = np.stack([mx, my], axis=1) * cell
         comp_lo = comp_hi = np.zeros((0, 2))
         if components and len(flip_lo):
             text = ((m_cpu[i, ..., 0] > thresh) | (m_gpu[i, ..., 0] > thresh)).numpy()
@@ -846,11 +1195,13 @@ def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", 
             comp_hi = (stats[hit, 0:2] + stats[hit, 2:4]) * cell
 
         def excuse(box, here, there):
-            nonlocal excused, by_component
+            nonlocal excused, by_component, by_moved
             if _holds_flip(box, flip_lo, flip_hi):
                 excused += 1
             elif _holds_flip(box, comp_lo, comp_hi):
                 by_component += 1
+            elif _holds_flip(box, moved_lo, moved_lo):
+                by_moved += 1
             else:
                 check(False, "page %d: %s box %s has no equal on the %s and no pixel binarized "
                       "differently" % (i, here, box, there))
@@ -875,11 +1226,13 @@ def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", 
         "threshold; on the same maps the cuda postprocess boxes == cpu on all %d pages"
         % (diff, gap, _fmt(margin), flip_counts, len(pages)))
     say(tag, "cuda float32 (TF32 off) vs cpu float32: %d of %d cpu boxes equal on the card "
-        "(%d card boxes); %d boxes without an equal hold a pixel binarized differently%s"
+        "(%d card boxes); %d boxes without an equal hold a pixel binarized differently%s%s"
         % (len(pairs), base_cpu, base_gpu, excused,
            "; %d more lie in a text component that holds one" % by_component
-           if components else ""))
-    return pairs
+           if components else "",
+           "; %d more hold a pixel where the maps differ by over %g" % (by_moved, moved)
+           if moved is not None else ""))
+    return pairs, diff
 
 
 def _fmt(margin):
@@ -899,12 +1252,14 @@ def _holds_flip(points, flip_lo, flip_hi):
     return bool(((flip_lo <= hi) & (flip_hi >= lo)).all(1).any())
 
 
-def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="slice-f32"):
+def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="slice-f32", excused=()):
     """Texts of the float32 slice on the card against the CPU run. On the
-    CPU's line crops, the argmax must agree at every step whose CPU top-2
+    CPU's line crops (turned as the CPU's classifier turns them, where the
+    slice has one), the argmax must agree at every step whose CPU top-2
     margin exceeds twice the largest CPU/card probability difference; then
     every equal box of compare_boxes must read the same on both, unless its
-    line holds a step within that of a tie."""
+    line holds a step within that of a tie or is in `excused` (CPU lines
+    whose cls label may differ)."""
     import cv2
     import numpy as np
 
@@ -913,6 +1268,7 @@ def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="slice-f32"):
     parts = []
     for path, page in zip(pages, cpu):
         parts.extend(crop_lines(cv2.imread(path), [np.array(b).reshape(-1, 2) for b, _, _ in page]))
+    parts = ocr_cpu.turn_upright(parts)
     batch = np.stack([ocr32.recer._prep(im) for im in parts])
     p_gpu = ocr32.recer.runner(batch).float().cpu()
     p_cpu = ocr_cpu.recer.runner(batch).float()
@@ -928,7 +1284,7 @@ def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="slice-f32"):
     for _, k_cpu, k_gpu in pairs:
         got, want = rows_gpu[k_gpu], rows_cpu[k_cpu]
         same += got == want
-        check(got == want or tied[k_cpu],
+        check(got == want or tied[k_cpu] or k_cpu in excused,
               "line %d: f32 text cuda %r != cpu %r" % (k_cpu, got, want))
     say(tag, "CTC probs max |cuda - cpu| %.3g; argmax equal at all %d decisive steps; "
         "texts equal on %d of the %d equal boxes (%d of all %d cpu lines hold a step within 2x "
@@ -996,12 +1352,12 @@ def device_time(fn, call_s):
     )
 
 
-def stage_breakdown(deter, pages, kind, recer=None):
-    """Host-clock stage times of one det (and, with `recer`, rec) pass over
-    `pages`, each ending in a sync; the postprocess's device front half
-    (`kind` db: db_front_half per page; pse, pan: the class's front_half,
-    which holds the CC labelling and the expansion) is timed once more alone
-    before the whole postprocess."""
+def stage_breakdown(deter, pages, kind, recer=None, clser=None):
+    """Host-clock stage times of one det (and, with `recer`, rec; with
+    `clser`, cls before rec) pass over `pages`, each ending in a sync; the
+    postprocess's device front half (`kind` db: db_front_half per page; pse,
+    pan: the class's front_half, which holds the CC labelling and the
+    expansion) is timed once more alone before the whole postprocess."""
     import cv2
     import numpy as np
     import torch
@@ -1039,6 +1395,8 @@ def stage_breakdown(deter, pages, kind, recer=None):
         boxes = [post[i]["points"] for i in range(len(pages))]  # crop cost is order-free
         parts = timed("crops", lambda: [c for im, b in zip(imgs, boxes)
                                         for c in crop_lines(im, b)])
+        if clser is not None:
+            timed("cls", lambda: clser.run_batch(parts))
         timed("rec", lambda: recer.run_batch(parts))
     return ", ".join("%s %.1f ms" % (k, v * 1e3) for k, v in times.items())
 
@@ -1074,18 +1432,23 @@ def main():
     phase_front_half(dev)
     with tempfile.TemporaryDirectory() as tmp:
         pages = make_pages(tmp)
-        db_k1, rec_pt = phase_slice(dev, card, tmp, pages)
-        pse_k1, pse_k2 = phase_pse(dev, card, tmp, pages, rec_pt)
+        db_k1, db = phase_slice(dev, card, tmp, pages)
+        pse_k1, pse_k2 = phase_pse(dev, card, tmp, pages, db["rec_pt"])
         pan_k1 = phase_pan(dev, card, tmp, pages)
+        (q8_conv, q8_k1), ocr_q8 = phase_int8_slice(dev, card, pages, db)
+        q8 = phase_int8_conv(dev, card, ocr_q8, pages)
+        del ocr_q8
+        phase_cls(dev, card, tmp, pages, db)
     bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
-    say("done", "main-path launches: K1 %d (DB %d, PSE %d, PAN %d), K2 %d (PSE); all phases "
-        "%.1f s" % (db_k1 + pse_k1 + pan_k1, db_k1, pse_k1, pan_k1, pse_k2,
-                    time.perf_counter() - t0))
+    say("done", "main-path launches: K1 %d (DB %d, PSE %d, PAN %d, int8 DB %d), K2 %d (PSE), "
+        "int8_conv %d (int8 DB); all phases %.1f s"
+        % (db_k1 + pse_k1 + pan_k1 + q8_k1, db_k1, pse_k1, pan_k1, q8_k1, pse_k2, q8_conv,
+           time.perf_counter() - t0))
 
     kernels = []
     for name, source, replaces, launches, row in (
-        ("segmented_runmax", "runmax.cu", 195, db_k1 + pse_k1 + pan_k1, k1),
+        ("segmented_runmax", "runmax.cu", 195, db_k1 + pse_k1 + pan_k1 + q8_k1, k1),
         ("propagate_rounds", "propagate.cu", 41, pse_k2, k2),
     ):
         kernels.append(dict(
@@ -1096,6 +1459,18 @@ def main():
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
             library_note=NO_LIBRARY[name],
         ))
+    kernels.append(dict(
+        name="int8_conv", route="cuda", source="pytorchocr_tpu_torch/csrc/int8_conv.cu",
+        replaces="pytorchocr_tpu/ops/quant.py:252", launches=q8_conv,
+        max_abs_err=q8["max_abs_err"], ms=q8["device_ms"], device_ms=q8["device_ms"],
+        wrapper_ms=q8["wrapper_ms"], plain_ms=q8["plain_ms"], bound_ms=q8["bound_ms"],
+        bound_by=q8["bound_by"], library_ms=q8["library_ms"],
+        per="one %d-page %dx%d DB-ResNet18 int8 forward: the sum over its %d int8 convs"
+            % (PAGES, H, W, q8["calls"]),
+        library_note="torch._int_mm (the same int32 product) on the %d 1x1 stride-1 convs of "
+                     "the %d; no PyTorch call computes the others (an int8 convolution on CUDA)"
+                     % (q8["library_calls"], q8["calls"]),
+    ))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,15 +5,18 @@ the JAX package `pytorchocr_tpu/`, which stays the reference: every module
 here names its JAX counterpart, and `tests/test_torch_*.py` hold each one
 against it on the same inputs with bridged weights.
 
-This slice covers the flagship serving path only:
+It covers the serving path:
 
-  DB-ResNet18 (FPN, DBHead) -> device DB front half (threshold, connected
-  components through the hand-written run-max kernel, per-label
-  count/score/bbox) -> host minAreaRect + unclip -> line crops ->
-  CRNN (VGG, BiLSTM, CTCHead) -> CTC greedy collapse,
+  DB-ResNet18 (FPN, DBHead), PSENet or PAN detection -> device front half
+  (threshold, connected components through the hand-written run-max
+  kernel, the PSE expansion through the propagation kernel) -> host boxes
+  -> line crops -> direction classifier (MobileNetV3, ClsHead) -> CRNN
+  (VGG, BiLSTM, CTCHead) -> CTC greedy collapse,
 
-composed by `deploy.run_ocr.OCRer.run_many`. Everything else of the JAX
-package raises `NotImplementedError` naming the ROADMAP.md item that ports it.
+composed by `deploy.run_ocr.OCRer.run_many`, with int8 PTQ detection
+(`ops/quant.py`; its convolutions in the hand-written int8 kernel). Everything
+else of the JAX package raises `NotImplementedError` naming the ROADMAP.md
+item that ports it.
 
 Layouts: modules are NCHW `nn.Module`s (channels_last on CUDA); the public
 functions keep the JAX layouts (HWC image batches in, (N, H, W, 1) DB maps,

@@ -3,16 +3,17 @@ pytorchocr_tpu/data/imaug/__init__.py:47-72 (`transform`, `create_operators`),
 so that the port imports nothing of the JAX package.
 
 Only the ops that the deploy entry points run are ported: after
-`Deter`/`Recer` drop DecodeImage, the label encoders, ToTensor and Normalize,
-the det configs keep DetResizeForTest and KeepKeys and the rec config keeps
-RecResizeImg and KeepKeys (`imaug.py`). Any other op of the JAX registry
+`Deter`/`Recer`/`Clser` drop DecodeImage, the label encoders, ToTensor and
+Normalize, the det configs keep DetResizeForTest and KeepKeys, the rec config
+RecResizeImg and KeepKeys, the cls config ClsResizeImg and KeepKeys
+(`imaug.py`). Any other op of the JAX registry
 raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
 
-from .imaug import DetResizeForTest, KeepKeys, RecResizeImg
+from .imaug import ClsResizeImg, DetResizeForTest, KeepKeys, RecResizeImg
 
 OPS = {"DetResizeForTest": DetResizeForTest, "KeepKeys": KeepKeys,
-       "RecResizeImg": RecResizeImg}
+       "RecResizeImg": RecResizeImg, "ClsResizeImg": ClsResizeImg}
 
 _LATER = dict(
     {name: "A.7" for name in (
@@ -22,7 +23,7 @@ _LATER = dict(
         "RandomCropImgMask", "MakeShrinkMap", "MakeBorderMap", "MakePseGt", "MakePanGt",
         "CopyPaste", "ColorJitter",
     )},
-    ClsResizeImg="A.5", RecResizeImgForTest="A.6", TableLabelEncode="A.13",
+    RecResizeImgForTest="A.6", TableLabelEncode="A.13",
     TableBoxEncode="A.13", ResizeTableImage="A.13", PaddingTableImage="A.13",
 )
 

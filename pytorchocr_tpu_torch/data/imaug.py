@@ -1,7 +1,7 @@
 """The eval ops the deploy entry points run — the port's copy of
 DetResizeForTest and KeepKeys (pytorchocr_tpu/data/imaug/operators.py:106,140)
-and RecResizeImg with resize_norm_img (rec_img_aug.py:48,130). Host-side
-numpy and cv2; images stay HWC, as in the JAX package.
+and ClsResizeImg, RecResizeImg with resize_norm_img (rec_img_aug.py:39,48,130).
+Host-side numpy and cv2; images stay HWC, as in the JAX package.
 """
 
 import math
@@ -96,6 +96,17 @@ class DetResizeForTest:
         ratio_h = resize_h / float(h)
         ratio_w = resize_w / float(w)
         return img, (ratio_h, ratio_w)
+
+
+class ClsResizeImg:
+    """From rec_img_aug.py:39."""
+
+    def __init__(self, image_shape, **kwargs):
+        self.image_shape = image_shape
+
+    def __call__(self, data):
+        data["image"] = resize_norm_img(data["image"], self.image_shape)
+        return data
 
 
 class RecResizeImg:

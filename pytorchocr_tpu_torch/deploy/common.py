@@ -5,14 +5,16 @@ batches (uint8 or float, numpy), folds the normalisation into the device
 forward (/255, -mean, /std), and returns the model's outputs as device
 tensors in the JAX layouts. It holds an explicit device and a compute dtype:
 bf16 autocast on CUDA by default (as the JAX deploy builds its models in
-bf16), float32 on the CPU. Not ported: int8 calibration (ROADMAP.md A.9),
-multi-card data parallel (A.14), AOT export (A.14).
+bf16), float32 on the CPU. `calibrate` runs the int8 PTQ calibration
+(ops/quant.py) over raw batches; after it the runner's forwards run in int8
+mode. Not ported: multi-card data parallel (A.14), AOT export (A.14).
 """
 
 import numpy as np
 import torch
 
 from ..modeling import build_model
+from ..ops import quant
 
 
 def resolve_device(device):
@@ -33,10 +35,12 @@ def padded_pow2_batch(arrays, combine=np.stack):
 
 
 class Runner:
-    """Eval-mode forward with the input normalisation on the device."""
+    """Eval-mode forward with the input normalisation on the device; int8
+    PTQ after `calibrate`."""
 
     def __init__(self, model, device="cuda", mean=None, std=None, dtype=None):
         self.device = resolve_device(device)
+        self.quant = False
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.dtype = dtype
@@ -54,8 +58,7 @@ class Runner:
         self.model.load_state_dict(state, strict=True)
         return self
 
-    @torch.inference_mode()
-    def __call__(self, images):
+    def _forward(self, images):
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         x = x.to(torch.float32)
         if self.mean is not None:
@@ -64,6 +67,20 @@ class Runner:
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             return self.model(x)
+
+    def calibrate(self, batches):
+        """int8 PTQ calibration: record every activation absmax over the raw
+        image batches `batches` (running max), in the runner's compute
+        dtype; later calls run int8."""
+        quant.calibrate(self.model, batches, forward=self._forward)
+        self.quant = True
+
+    @torch.inference_mode()
+    def __call__(self, images):
+        if not self.quant:
+            return self._forward(images)
+        with quant.quantized(self.model, "int8"):
+            return self._forward(images)
 
 
 def build_runner(config, model_path, device, **kwargs):

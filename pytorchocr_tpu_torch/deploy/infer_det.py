@@ -2,7 +2,10 @@
 
 Usage:
   python -m pytorchocr_tpu_torch.deploy.infer_det --config configs/det/det_r18_db.yml \
-      --model_path det.pt --img_path imgs/ --out_dir output/
+      --model_path det.pt --img_path imgs/ --out_dir output/ [--quant --calib_n 8]
+
+`--quant`: int8 PTQ detection (ops/quant.py), calibrated on the first
+`--calib_n` input images before inference.
 """
 
 import argparse
@@ -40,12 +43,22 @@ def parse_args():
     parser.add_argument("--model_path", type=str, help=".pt state_dict to use")
     parser.add_argument("--img_path", type=str, help="test img-path or img-dir")
     parser.add_argument("--out_dir", type=str, help="output directory")
+    parser.add_argument("--quant", action="store_true",
+                        help="int8 PTQ inference, calibrated on the first --calib_n images")
+    parser.add_argument("--calib_n", type=int, default=8,
+                        help="number of input images used for int8 calibration")
     add_device_arg(parser)
     return parser.parse_args()
 
 
 class Deter:
-    def __init__(self, det_cfg, det_ckpt, device="cuda", dtype=None):
+    """Detection over decoded pages. With `quant`, the forward runs int8
+    PTQ, calibrated by `calibrate_on` or, lazily, on the pages of the first
+    call (`run`: its page; `run_batch`: the first half of its pages), as the
+    JAX Deter does."""
+
+    def __init__(self, det_cfg, det_ckpt, device="cuda", dtype=None, quant=False):
+        self._want_quant = quant
         det_cfg = load_config(det_cfg)
         det_cfg["Global"]["distributed"] = False
         self.det_post_process_class = build_post_process(
@@ -91,8 +104,17 @@ class Deter:
         det_batch = transform({"image": img}, self.det_ops)
         return det_batch[0][None], np.expand_dims(det_batch[1], axis=0)
 
+    def calibrate_on(self, imgs):
+        """int8 calibration over a sample of pages (paths or BGR arrays):
+        running absmax across all of them."""
+        batches = [self._preprocess(im)[0] for im in imgs]
+        if batches:
+            self.runner.calibrate(batches)
+
     def run(self, img):
         det_img, shape_list = self._preprocess(img)
+        if self._want_quant and not self.runner.quant:
+            self.runner.calibrate([det_img])
         post = self.det_post_process_class(self.runner(det_img), shape_list)
         return sort_boxes(post[0]["points"])
 
@@ -101,6 +123,8 @@ class Deter:
         post-resize shape (in chunks of MAX_BS, padded to a power of two).
         Returns one sorted box array per image, in input order."""
         pre = [self._preprocess(im) for im in imgs]
+        if pre and self._want_quant and not self.runner.quant:
+            self.runner.calibrate([p[0] for p in pre[: max(1, len(pre) // 2)]])
         groups = {}
         for i, (det_img, _) in enumerate(pre):
             groups.setdefault(det_img.shape, []).append(i)
@@ -120,10 +144,13 @@ class Deter:
 
 def main():
     args = parse_args()
-    deter = Deter(args.config, args.model_path, device=args.device)
+    deter = Deter(args.config, args.model_path, device=args.device, quant=args.quant)
     out_dir = Path(args.out_dir or "./output")
     out_dir.mkdir(exist_ok=True, parents=True)
-    for img_path in list_images(args.img_path):
+    img_paths = list_images(args.img_path)
+    if args.quant:
+        deter.calibrate_on([str(p) for p in img_paths[: max(args.calib_n, 1)]])
+    for img_path in img_paths:
         boxes = deter.run(str(img_path))
         with open(out_dir / ("res_%s.txt" % img_path.stem), "w", encoding="UTF-8") as fp:
             for box in boxes:

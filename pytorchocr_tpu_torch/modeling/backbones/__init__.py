@@ -2,6 +2,7 @@
 
 from ..registry import build
 from .det_resnet import ResNet
+from .rec_mobilenet_v3 import MobileNetV3
 from .rec_vgg import VGG
 
 __all__ = ["build_backbone"]
@@ -11,8 +12,8 @@ _DET_LATER = {
     "MobileNetV3": "A.11", "ShuffleNetV2": "A.11", "RepVGG": "A.11",
     "ConvNeXt": "A.11", "SwinTransformer": "A.11", "PPLCNet": "A.11",
 }
-_REC = {"VGG": VGG}
-_REC_LATER = {"ResNet": "A.11", "MobileNetV3": "A.5 (cls) / A.11 (rec)"}
+_REC = {"VGG": VGG, "MobileNetV3": MobileNetV3}
+_REC_LATER = {"ResNet": "A.11"}
 
 
 def build_backbone(config, model_type):

@@ -3,14 +3,18 @@ pytorchocr_tpu/modeling/backbones/det_resnet.py.
 
 ResNet 18/34 (BasicBlock) and 50/101/152 (Bottleneck), NCHW, returning the
 feature maps C2..C5 at strides 1/4..1/32. `mode_3x3` stem and last-stage
-dilation as in the JAX version. Not carried into the port:
+dilation as in the JAX version. Under int8 PTQ (ops/quant.py) every tensor
+a block writes is an int8 QTensor: the 7x7 stem, conv1..3 and downsample
+emit int8, the max pool pools int8, and the residual tails requantize
+(JAX det_resnet.py:35-135). Not carried into the port:
 `stem_space_to_depth` (a TPU layout trick, off by default; ROADMAP.md A.15).
 """
 
 import torch.nn.functional as F
 from torch import nn
 
-from ..common import ConvBNAct, max_pool
+from ...ops import quant
+from ..common import ConvBNAct, finish_residual, quant_max_pool
 
 __all__ = ["ResNet"]
 
@@ -28,16 +32,19 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_channels, planes, stride=1, downsample=False, dilation=1):
         super().__init__()
-        self.conv1 = ConvBNAct(in_channels, planes, 3, stride, dilation=dilation)
-        self.conv2 = ConvBNAct(planes, planes, 3, 1, dilation=dilation, act=None)
+        self.conv1 = ConvBNAct(in_channels, planes, 3, stride, dilation=dilation, emit_q=True)
+        self.conv2 = ConvBNAct(planes, planes, 3, 1, dilation=dilation, act=None, emit_q=True)
         self.downsample = (
-            ConvBNAct(in_channels, planes, 1, stride, act=None) if downsample else None
+            ConvBNAct(in_channels, planes, 1, stride, act=None, emit_q=True)
+            if downsample else None
         )
+        self.qmode = None
+        self.out_absmax = quant.AbsMax()
 
     def forward(self, x):
         out = self.conv2(self.conv1(x))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return finish_residual(self, out, identity, F.relu)
 
 
 class Bottleneck(nn.Module):
@@ -46,18 +53,21 @@ class Bottleneck(nn.Module):
     def __init__(self, in_channels, planes, stride=1, downsample=False, dilation=1):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = ConvBNAct(in_channels, planes, 1, 1)
+        self.conv1 = ConvBNAct(in_channels, planes, 1, 1, emit_q=True)
         # v1.5: the stride sits in the 3x3
-        self.conv2 = ConvBNAct(planes, planes, 3, stride, dilation=dilation)
-        self.conv3 = ConvBNAct(planes, out_ch, 1, 1, act=None)
+        self.conv2 = ConvBNAct(planes, planes, 3, stride, dilation=dilation, emit_q=True)
+        self.conv3 = ConvBNAct(planes, out_ch, 1, 1, act=None, emit_q=True)
         self.downsample = (
-            ConvBNAct(in_channels, out_ch, 1, stride, act=None) if downsample else None
+            ConvBNAct(in_channels, out_ch, 1, stride, act=None, emit_q=True)
+            if downsample else None
         )
+        self.qmode = None
+        self.out_absmax = quant.AbsMax()
 
     def forward(self, x):
         out = self.conv3(self.conv2(self.conv1(x)))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return finish_residual(self, out, identity, F.relu)
 
 
 class ResNet(nn.Module):
@@ -78,7 +88,7 @@ class ResNet(nn.Module):
             self.stem2 = ConvBNAct(32, 32, 3, 1)
             self.stem3 = ConvBNAct(32, 64, 3, 1)
         else:
-            self.stem = ConvBNAct(in_channels, 64, 7, 2, padding=3)
+            self.stem = ConvBNAct(in_channels, 64, 7, 2, padding=3, emit_q=True)
         self.block_names = []
         ch = 64
         for stage, planes in enumerate([64, 128, 256, 512]):
@@ -101,7 +111,7 @@ class ResNet(nn.Module):
             x = self.stem3(self.stem2(self.stem1(x)))
         else:
             x = self.stem(x)
-        x = max_pool(x, 3, 2, 1)
+        x = quant_max_pool(x, 3, 2, 1)
         outs = []
         for names in self.block_names:
             for name in names:

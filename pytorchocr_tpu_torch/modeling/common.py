@@ -3,14 +3,26 @@
 NCHW `nn.Module`s. Submodule names mirror the flax ones (`conv`, `bn`) so the
 weight bridge (utils/weights.py) maps flax paths onto torch names one to one.
 
-Half-ported: the float path of ConvBNAct only. The int8 PTQ branches
-(QuantConv, emit_q, finish_residual's int8 flow, quant_max_pool), SEModule and
-DPModule wait for their ROADMAP.md items.
+ConvBNAct carries the int8 PTQ flow of ops/quant.py: its conv is a
+`QuantConv`, and with `emit_q` it hands its consumers an int8 QTensor under
+int8 mode. `finish_residual` and `quant_max_pool` keep a ResNet block's
+output int8. SEModule and DPModule wait for ROADMAP.md A.11.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import quant
+
+
+def make_divisible(v, divisor=8, min_value=None):
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
 
 
 def hard_sigmoid(x):
@@ -44,18 +56,25 @@ class ConvBNAct(nn.Module):
     """conv -> BN -> activation. `padding` None means symmetric d*(k-1)//2,
     an int is symmetric. `bn_momentum` is the flax one (0.9), i.e. torch
     momentum 0.1. The JAX version's asymmetric padding serves only the
-    stem_space_to_depth stem, which is not ported."""
+    stem_space_to_depth stem, which is not ported.
+
+    `emit_q`: under int8 mode the output is quantized with a calibrated
+    absmax (`out_absmax`) and returned as a QTensor, so the consumer conv or
+    residual add reads int8 (JAX common.py:168-179). Set where the JAX
+    package sets it in a region that is on by default (the backbone, the DB
+    head's conv1); the FPN laterals' region (`q8_fpn_topdown`) is off, so
+    they do not emit."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=None, groups=1, dilation=1, use_bias=False, act="relu",
-                 use_bn=True, bn_eps=1e-5, bn_momentum=0.9):
+                 use_bn=True, bn_eps=1e-5, bn_momentum=0.9, emit_q=False):
         super().__init__()
         ks = _pair(kernel_size)
         if padding is None:
             padding = tuple(dilation * (k - 1) // 2 for k in ks)
         elif not isinstance(padding, int):
             raise NotImplementedError("ConvBNAct takes None or an int padding")
-        self.conv = nn.Conv2d(
+        self.conv = quant.QuantConv(
             in_channels, out_channels, ks, _pair(stride), padding=padding,
             dilation=dilation, groups=groups, bias=use_bias,
         )
@@ -64,6 +83,8 @@ class ConvBNAct(nn.Module):
             if use_bn else None
         )
         self.act = act
+        self.qmode = None
+        self.out_absmax = quant.AbsMax() if emit_q else None
 
     def forward(self, x):
         x = self.conv(x)
@@ -71,7 +92,35 @@ class ConvBNAct(nn.Module):
             x = self.bn(x)
         if self.act is not None:
             x = ACTS[self.act](x)
+        qmode = quant.quantizing(self) if self.out_absmax is not None else None
+        if qmode == "calibrate":
+            self.out_absmax.observe(x)
+        elif qmode == "int8":
+            return quant.qtensor_from(x, self.out_absmax.get())
         return x
+
+
+def finish_residual(block, out, identity, act_fn):
+    """Residual add + activation tail of the ResNet blocks, with the int8
+    flow (JAX common.py:148-173): in int8 mode both operands may be int8
+    QTensors and the sum is requantized with the block's calibrated
+    `out_absmax` (a QTensor out); calibrate mode records that absmax; float
+    mode is `act(out + identity)`."""
+    qmode = quant.quantizing(block)
+    if qmode == "int8":
+        return quant.qadd_act(out, identity, block.out_absmax.get(), act=act_fn)
+    y = act_fn(out + identity)
+    if qmode == "calibrate":
+        block.out_absmax.observe(y)
+    return y
+
+
+def quant_max_pool(x, window, stride, padding):
+    """max_pool that keeps an int8 QTensor int8; plain tensors take the
+    normal max_pool."""
+    if isinstance(x, quant.QTensor):
+        return quant.qmaxpool(x, window, stride, padding)
+    return max_pool(x, window, stride, padding)
 
 
 def max_pool(x, window, strides, padding=(0, 0)):

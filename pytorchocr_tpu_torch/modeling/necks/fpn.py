@@ -2,13 +2,20 @@
 
 1x1 laterals + top-down nearest-upsample-add + 3x3 smoothing; mode "DB"
 concatenates four out_channels/4 maps back to out_channels, otherwise four
-out_channels maps make 4*out_channels. NCHW. Not ported: the ASF attention
-(DB++, ROADMAP.md A.11) and the int8 PTQ flow (A.9).
+out_channels maps make 4*out_channels. NCHW.
+
+int8 PTQ (ops/quant.py): the laterals take the backbone's int8 QTensors;
+in DB mode the fused map is int8 (JAX fpn.py:96-128, `q8_fpn_fuse`): p5..p2
+are quantized with one shared calibrated absmax (`fuse_absmax`), so the
+concatenation of their int8 payloads, upsampled x8/x4/x2, is one QTensor for
+the head. The top-down adds stay float (`q8_fpn_topdown` is off in the JAX
+package). Not ported: the ASF attention (DB++, ROADMAP.md A.11).
 """
 
 import torch
 from torch import nn
 
+from ...ops import quant
 from ..common import ConvBNAct, resize_nearest
 
 __all__ = ["FPN"]
@@ -33,6 +40,8 @@ class FPN(nn.Module):
         self.out4 = ConvBNAct(oc, sc, 3, 1)
         self.out3 = ConvBNAct(oc, sc, 3, 1)
         self.out2 = ConvBNAct(oc, sc, 3, 1)
+        self.qmode = None
+        self.fuse_absmax = quant.AbsMax() if mode == "DB" else None
 
     def forward(self, x):
         c2, c3, c4, c5 = x
@@ -40,9 +49,16 @@ class FPN(nn.Module):
         out4 = resize_nearest(in5, 2) + in4
         out3 = resize_nearest(out4, 2) + in3
         out2 = resize_nearest(out3, 2) + in2
-        p5 = resize_nearest(self.out5(in5), 8)
-        p4 = resize_nearest(self.out4(out4), 4)
-        p3 = resize_nearest(self.out3(out3), 2)
-        p2 = self.out2(out2)
+        p5, p4, p3, p2 = self.out5(in5), self.out4(out4), self.out3(out3), self.out2(out2)
+        qmode = quant.quantizing(self) if self.fuse_absmax is not None else None
+        if qmode == "calibrate":
+            self.fuse_absmax.observe(p5, p4, p3, p2)
+        elif qmode == "int8":
+            absmax = self.fuse_absmax.get()
+            q5, q4, q3, q2 = (quant.qtensor_from(p, absmax) for p in (p5, p4, p3, p2))
+            payload = torch.cat([quant.repeat_nearest(q5.q, 8), quant.repeat_nearest(q4.q, 4),
+                                 quant.repeat_nearest(q3.q, 2), q2.q], dim=1)
+            return quant.QTensor(payload, q2.scale)
+        p5, p4, p3 = resize_nearest(p5, 8), resize_nearest(p4, 4), resize_nearest(p3, 2)
         feats = [p5, p4, p3, p2] if self.mode == "DB" else [p2, p3, p4, p5]
         return torch.cat(feats, dim=1)

@@ -6,19 +6,21 @@ __all__ = ["build_post_process"]
 
 _LATER = {
     "AttnLabelDecode": "A.11",
-    "ClsPostProcess": "A.5", "DistillationCTCLabelDecode": "A.12",
+    "DistillationCTCLabelDecode": "A.12",
     "DistillationDBPostProcess": "A.12", "TableLabelDecode": "A.13",
 }
 
 
 def build_post_process(config, global_config=None):
+    from .cls_postprocess import ClsPostProcess
     from .db_postprocess import DBPostProcess
     from .pan_postprocess import PANPostProcess
     from .pse_postprocess import PSEPostProcess
     from .rec_postprocess import CTCLabelDecode
 
     support = {"DBPostProcess": DBPostProcess, "PSEPostProcess": PSEPostProcess,
-               "PANPostProcess": PANPostProcess, "CTCLabelDecode": CTCLabelDecode}
+               "PANPostProcess": PANPostProcess, "CTCLabelDecode": CTCLabelDecode,
+               "ClsPostProcess": ClsPostProcess}
     config = copy.deepcopy(config)
     name = config.pop("name")
     if name == "None":

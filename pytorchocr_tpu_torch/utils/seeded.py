@@ -3,10 +3,11 @@
 `seeded_init_` draws a model's weights from a torch.Generator with the JAX
 package's initialisers. Untrained weights map a page to noise and a near
 uniform softmax, so `text_like_db_head_`, `text_like_pse_head_`,
-`text_like_pan_head_` and `decisive_ctc_head_` reshape the last layers of the
-detection and CTC heads on the run's own pages: the detection postprocesses
-then find text-like components and the CTC collapse reads decided
-characters. Used by chip_smoke.py and the slice test; no serving path
+`text_like_pan_head_`, `decisive_ctc_head_` and `decisive_cls_head_` reshape
+the last layers of the detection, CTC and direction-classifier heads on the
+run's own pages: the detection postprocesses then find text-like
+components, the CTC collapse reads decided characters and the classifier
+decides most crops far from p = 0.5. Used by chip_smoke.py and the slice test; no serving path
 calls them.
 """
 
@@ -190,3 +191,33 @@ def decisive_ctc_head_(model, images, blank_bias=4.0):
     fc.bias.mul_(scale)
     fc.bias[0] += blank_bias
     return model
+
+
+@torch.no_grad()
+def decisive_cls_head_(model, images, spread=4.0):
+    """Make a direction classifier with untrained, seeded weights decide: its
+    two-class softmax is otherwise near 0.5 on every crop. The head's `fc`
+    is set so that logit("180") - logit("0") is `spread` times the
+    standardised projection of the pooled features of `images` (NCHW,
+    normalized; two or more) on their first principal direction, centred in
+    the widest gap between the projections of the middle half of the crops:
+    about half the crops are labelled "180", most far from p = 0.5.
+    Returns the smallest |logit difference| on `images`, the distance of the
+    crop nearest a tie."""
+    if len(images) < 2:
+        raise ValueError("decisive_cls_head_ needs two or more crops")
+    fc = model.head.fc
+    feats = _eval_hooked(model, fc, images).double().cpu()
+    _, _, v = torch.linalg.svd(feats - feats.mean(dim=0), full_matrices=False)
+    z = feats @ v[0]
+    zs = z.sort().values
+    n = len(zs)
+    lo, hi = n // 4, max(n // 4 + 1, (3 * n) // 4)
+    gap = int(torch.diff(zs[lo : hi + 1]).argmax()) + lo
+    med = (zs[gap] + zs[gap + 1]) / 2.0
+    a = spread / float((z - med).std())
+    fc.weight.zero_()
+    fc.bias.zero_()
+    fc.weight[1] = (a * v[0]).to(fc.weight.dtype)
+    fc.bias[1] = -a * float(med)
+    return float((a * (z - med)).abs().min())

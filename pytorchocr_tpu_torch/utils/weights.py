@@ -15,13 +15,21 @@ the flax ones, so a torch module at `a.b.c` reads the flax subtree
 
 Every torch tensor must find its flax leaf and every flax leaf must be used;
 anything else raises.
+
+The int8 PTQ state (the JAX `quant` collection: `act_absmax`, `out_absmax`,
+`fuse_absmax`, `mid_absmax` scalars) lies outside the state_dict, in the
+port's `ops.quant.AbsMax` modules of the same names (`flax_quant_to_torch`,
+`load_absmax`).
 """
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..modeling.necks.rnn import BiLSTM
+from ..ops.quant import AbsMax
 
 
 def _subtree(tree, path):
@@ -68,7 +76,7 @@ def _module_leaves(module, params, stats):
 
 
 def _flat_keys(tree, prefix=()):
-    if not isinstance(tree, dict):
+    if not isinstance(tree, Mapping):
         return {prefix}
     keys = set()
     for k, v in tree.items():
@@ -121,3 +129,33 @@ def load_flax_variables(model, variables):
     """Load flax `variables` into `model` in place (shapes checked)."""
     model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
     return model
+
+
+def load_absmax(model, state):
+    """Set `model`'s AbsMax modules from `state`, {module name: value} (what
+    `flax_quant_to_torch` returns and tools/convert_flax_to_torch.py saves
+    as <out>.quant.pt). A name that is not an AbsMax module raises."""
+    mods = dict(model.named_modules())
+    missing = sorted(k for k in state if not isinstance(mods.get(k), AbsMax))
+    if missing:
+        raise KeyError("quant bridge: no AbsMax module for %s" % missing)
+    for k, v in state.items():
+        mods[k].set(v)
+    return model
+
+
+def flax_quant_to_torch(model, quant_vars):
+    """Carry the JAX `quant` collection into `model`: the leaf at flax path
+    a/b/out_absmax sets the AbsMax module a.b.out_absmax (the port's names
+    mirror the flax ones). A leaf without its module raises, as the param
+    bridge does. Returns the {module name: float32 tensor} it set. Modules
+    the JAX run never calibrated (e.g. the DB head's train-only tower) keep
+    their state."""
+    state = {}
+    for path in sorted(_flat_keys(quant_vars)):
+        leaf = quant_vars
+        for k in path:
+            leaf = leaf[k]
+        state[".".join(path)] = torch.tensor(np.asarray(leaf, np.float32).reshape(()))
+    load_absmax(model, state)
+    return state

@@ -172,11 +172,11 @@ def test_bridge_rejects_mismatched_trees():
 
 @pytest.mark.parametrize("section,name,item", [
     ("Backbone", "MobileNetV3", "A.11"), ("Neck", "CSPPAN", "A.13"),
-    ("Head", "ClsHead", "A.5"),
+    ("Head", "SLAHead", "A.13"),
 ])
 def test_registry_names_the_roadmap_item(section, name, item):
     arch = dict(DB_ARCH, **{section: {"name": name}})
     with pytest.raises(NotImplementedError, match=item):
         build_model(arch)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        build_post_process({"name": "ClsPostProcess"})
+    with pytest.raises(NotImplementedError, match="A.13"):
+        build_post_process({"name": "TableLabelDecode"})

@@ -93,3 +93,54 @@ def jax_train_state(cfg_path, example_shape, char_num=None):
     return create_train_state(
         model, tx, jax.random.PRNGKey(0), (np.zeros(example_shape, np.float32),)
     )
+
+
+def quant_leaves(tree, prefix=()):
+    """{"a.b.c": float} of a JAX `quant` collection: its leaves under the
+    names of the port's AbsMax modules."""
+    if not hasattr(tree, "items"):
+        return {".".join(prefix): float(np.asarray(tree))}
+    out = {}
+    for k, v in tree.items():
+        out.update(quant_leaves(v, prefix + (k,)))
+    return out
+
+
+def assert_absmax_match(model, quant_vars, rtol=1e-5):
+    """Every leaf of a JAX `quant` collection against the calibrated AbsMax
+    module of `model` of the same name. Returns the number of leaves."""
+    mods = dict(model.named_modules())
+    want = quant_leaves(quant_vars)
+    assert want
+    for name, value in want.items():
+        assert mods[name].calibrated, name
+        np.testing.assert_allclose(float(mods[name].value), value, rtol=rtol, err_msg=name)
+    return len(want)
+
+
+def rect_hmean(got, want, min_iou=0.5):
+    """hmean of two runs' boxes (one list per page; a box is an array of
+    points, or an OCR row whose first item is one) matched one to one, page
+    by page, greedily by bounding-rectangle IoU >= min_iou."""
+    def rect(row):
+        p = np.asarray(row[0] if isinstance(row, (list, tuple)) else row).reshape(-1, 2)
+        return np.r_[p.min(0), p.max(0)].astype(np.float64)
+
+    matched = 0
+    for page, ref in zip(got, want):
+        free = [rect(r) for r in ref]
+        for row in page:
+            a, best, best_iou = rect(row), None, min_iou
+            for j, b in enumerate(free):
+                if b is None:
+                    continue
+                inter = np.prod(np.clip(np.minimum(a[2:], b[2:]) - np.maximum(a[:2], b[:2]), 0,
+                                        None))
+                union = np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2]) - inter
+                if union > 0 and inter / union >= best_iou:
+                    best, best_iou = j, inter / union
+            if best is not None:
+                free[best] = None
+                matched += 1
+    total = sum(map(len, got)) + sum(map(len, want))
+    return 2.0 * matched / total if total else 1.0

@@ -4,7 +4,10 @@ the PyTorch port, pytorchocr_tpu_torch.
 Reads the checkpoint with utils/save_load.py:_restore_pytree, maps pre-fusion
 BiLSTM trees with migrate_fused_bilstm, builds the port's model from the same
 YAML config, and passes {params, batch_stats} through the weight bridge
-(pytorchocr_tpu_torch/utils/weights.py).
+(pytorchocr_tpu_torch/utils/weights.py). A checkpoint that holds an int8 PTQ
+`quant` collection also gets <out>.quant.pt beside the .pt: the calibrated
+absmax of every `AbsMax` module by name (load it with
+`pytorchocr_tpu_torch.utils.weights.load_absmax`).
 
 Usage:
   python tools/convert_flax_to_torch.py -c configs/det/det_r18_db.yml \
@@ -27,7 +30,9 @@ from pytorchocr_tpu.utils.config import load_config  # noqa: E402
 from pytorchocr_tpu.utils.save_load import _restore_pytree, migrate_fused_bilstm  # noqa: E402
 from pytorchocr_tpu_torch.modeling import build_model  # noqa: E402
 from pytorchocr_tpu_torch.postprocess import build_post_process  # noqa: E402
-from pytorchocr_tpu_torch.utils.weights import flax_to_state_dict  # noqa: E402
+from pytorchocr_tpu_torch.utils.weights import (  # noqa: E402
+    flax_quant_to_torch, flax_to_state_dict,
+)
 
 
 def port_architecture(config):
@@ -52,7 +57,15 @@ def convert(config_path, ckpt_path, out_path):
     model = build_model(port_architecture(config))
     state = flax_to_state_dict(model, variables)
     torch.save(state, out_path)
+    if restored.get("quant"):
+        absmax = flax_quant_to_torch(model, jax.tree.map(np.asarray, restored["quant"]))
+        torch.save(absmax, quant_path(out_path))
     return state
+
+
+def quant_path(out_path):
+    """Where `convert` writes the int8 calibration state beside `out_path`."""
+    return os.path.splitext(out_path)[0] + ".quant.pt"
 
 
 def main():
