@@ -5,7 +5,8 @@
 
 Phases, one line each, any failure ends the run with a non-zero exit:
   1. device report and the build of the hand-written kernels (nvcc, sm_90a,
-     one nvcc per source, all started together);
+     one nvcc per source, all started together), with ptxas's registers and
+     spills and the IGMMA (wgmma) instructions of the int8 conv's SASS;
   2. the run-max kernel (K1) against its plain PyTorch version, exactly, on
      both axes and with the changed flag, at 736x1280 (random, text-like,
      all masked, empty), 184x320, 4096x256, 64x20000, 97x1001, 1x5000 and
@@ -46,13 +47,25 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      counted and timed; its prob maps held against the float bf16 ones by
      the bound tests/test_quant.py sets for an untrained DB model (mean
      |int8 - float| < 0.05), its boxes reported against phase 5's by hmean
-     (rectangle IoU >= 0.5);
+     (rectangle IoU >= 0.5); the int8 and the float det forward (bf16)
+     over 10 alternating synced calls each, with each one's card time by
+     kernel against its wall time and the host time inside the port's
+     int8 wrappers (forward_report);
   9. the int8 conv kernel (csrc/int8_conv.cu) against its plain version,
-     exactly, on every QuantConv call of one 4-page bf16 int8 DB-ResNet18
-     forward (collected by wrapping the wrapper) and on edge shapes; per
-     distinct shape its device-only, wrapper, plain, torch._int_mm (1x1
-     stride-1 shapes: the same int32 product) and cuDNN bf16 conv times and
-     its bound (2 x MACs at 1,979 int8 TOP/s or bytes at 3.35 TB/s);
+     exactly, in float32 and bf16 output, on every QuantConv call of one
+     4-page bf16 int8 DB-ResNet18 forward (collected by wrapping the
+     wrapper; every call must write bf16), of the same pages turned
+     portrait (1056x736), and on edge shapes; per distinct shape and dtype
+     its device time (stream_ms: back to back, the L2 cold), profiler,
+     wrapper and plain times and its bound (2 x MACs at 1,979 int8 TOP/s or
+     bytes at 3.35 TB/s, the output at its own element size),
+     torch._int_mm (1x1 stride-1 shapes: the same int32 product) and
+     cuDNN bf16 conv times, and the portrait stem's times; then the
+     requantize kernel (csrc/requant.cu) against its plain version on every
+     quantize, dequant and residual requantize call of that forward and on
+     edge inputs, with its device time and bound (bytes) per shape and
+     torch.mul beside the dequant calls, and the path check: the det
+     model's int8 bf16 forward runs no aten::round or aten::clamp;
  10. the direction classifier: OCRer with a seeded cls_mbv3small.yml (its
      fc made decisive on the DB slice's crops) on the CPU and float32 on the
      card: equal labels (but a crop whose |p - 0.5| lies within the
@@ -62,7 +75,8 @@ Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
 {"kernels": [...]} (device_ms, wrapper_ms, plain_ms, bound_ms, bound_by,
-library_ms, launches), the last one the contract {"ok": true, "device":
+library_ms, launches, and `timing`, how device_ms was taken), the last one
+the contract {"ok": true, "device":
 {...}}. Without a card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -78,6 +92,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 PAGES = 4
 H, W = 736, 1280
+PORTRAIT_H = 1056  # phase 9's portrait pages: PORTRAIT_H x H
 DET_CFG = os.path.join(REPO, "configs", "det", "det_r18_db.yml")
 REC_CFG = os.path.join(REPO, "configs", "rec", "rec_vgg_bilstm_ctc.yml")
 PSE_CFG = os.path.join(REPO, "configs", "det", "det_r50_pse.yml")
@@ -145,8 +160,7 @@ def kernel_ms(launch, iters=100, sessions=5):
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
-                name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
-                t = totals.setdefault(name, [0.0, 0])
+                t = totals.setdefault(kernel_name(e.key), [0.0, 0])
                 t[0] += e.self_device_time_total
                 t[1] += e.count
         if totals and min(n for _, n in totals.values()) >= 50:
@@ -155,6 +169,64 @@ def kernel_ms(launch, iters=100, sessions=5):
           "the profiler traces hold under 10 records of a kernel: kernel time not measured")
     means = [(name, us / 1e3 / n, n) for name, (us, n) in totals.items()]
     return sum(m[1] for m in means), ", ".join("%s %.4f x%d" % m for m in means)
+
+
+L2_BYTES = 50 * 2 ** 20  # H100 SXM L2 (NVIDIA data sheet)
+
+
+def stream_ms(launch, tensors, reps=5):
+    """Device ms per call of `launch(*tensors)` back to back, with the L2
+    cold: the int8_conv and requant rows of the kernels line use it.
+    `launch` runs on rotating copies of `tensors` (its inputs, and its
+    outputs where it writes into given ones; what it returns is kept, so a
+    new output is a new buffer) that together hold 4x the L2, so every call
+    reads its inputs from device memory and its writes evict the dirty lines
+    of earlier calls: the write-back that a single launch leaves in the L2
+    past its end is paid inside the run. The calls are captured in one CUDA
+    graph, replayed `reps` times between CUDA events, and the time divided
+    by the calls; the graph's gaps between launches are in it."""
+    import torch
+
+    footprint = max(1, sum(t.numel() * t.element_size() for t in tensors))
+    sets = max(2, -(-4 * L2_BYTES // footprint))
+    copies = [list(tensors)] + [[t.clone() for t in tensors] for _ in range(sets - 1)]
+    n = sets * max(1, -(-16 // sets))
+    side = torch.cuda.Stream()  # warm on a side stream, as graph capture asks
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in copies[:2]:  # builds, attributes, cached tensor maps, library handles
+            launch(*c)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, kept = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            kept.append(launch(*copies[i % sets]))
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph, kept, copies
+    return ms
+
+
+def share(bound, ms):
+    """`bound` over `ms` in percent; past 100% the time is a measurement
+    fault (the card cannot beat its bound), flagged as such."""
+    pct = 100.0 * bound / ms
+    return "%.0f%%%s" % (pct, " (over 100%: a measurement fault, not a result)" if pct > 100 else "")
+
+
+def kernel_name(key):
+    """A profiler kernel key without its namespace, return type and
+    parameter list; template arguments kept."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "").replace(
+        " ", "")
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -220,6 +292,19 @@ def text_like_binary(rng, h, w, n_lines):
     return m
 
 
+def igmma_count(lib):
+    """IGMMA instructions in `lib`'s SASS by cuobjdump, or None where the
+    toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
+    return sum("IGMMA" in ln for ln in out.stdout.splitlines())
+
+
 def phase_kernels(dev, card, int32_rate):
     import numpy as np
     import torch
@@ -237,8 +322,20 @@ def phase_kernels(dev, card, int32_rate):
             regs = " | ".join(ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                               if "registers" in ln)
             say("build", "%s.cu built by nvcc (sm_90a) in %.2f s; ptxas: %s" % (name, secs, regs))
+            spills = sorted({ln.strip() for ln in log.splitlines()
+                             if "spill" in ln and not ln.strip().startswith("0 bytes")
+                             and " 0 bytes spill stores, 0 bytes spill loads" not in ln})
+            if spills:
+                say("build", "%s.cu: ptxas reports spills: %s" % (name, " | ".join(spills)))
+            if "serializ" in log:
+                say("build", "%s.cu: ptxas: %s" % (name, " | ".join(
+                    ln.strip() for ln in log.splitlines() if "serializ" in ln)))
         else:
             say("build", "%s.cu loaded from an earlier build" % name)
+    igmma = igmma_count(_kernels.build(["int8_conv"])["int8_conv"])
+    if igmma is not None:
+        check(igmma > 0, "the int8 conv library holds no IGMMA instruction: no wgmma path built")
+        say("build", "int8_conv: %d IGMMA (wgmma s8) instructions in its SASS (cuobjdump)" % igmma)
     say("build", "all kernels ready in %.2f s" % (time.perf_counter() - t0))
 
     rng = np.random.RandomState(SEED)
@@ -847,13 +944,13 @@ def hmean(runs, refs):
 
 def phase_int8_slice(dev, card, pages, db):
     """The int8 DB slice on the DB slice's checkpoints `db` (phase_slice's).
-    Returns the main-path run's (int8 conv, K1) launches, the bf16 int8
-    OCRer and its pages/s."""
+    Returns the main-path run's (int8 conv, K1, requant) launches and the
+    bf16 int8 OCRer."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.infer_det import Deter
     from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
-    from pytorchocr_tpu_torch.ops import int8_conv, runmax
+    from pytorchocr_tpu_torch.ops import int8_conv, requant, runmax
     from pytorchocr_tpu_torch.utils.weights import load_absmax
 
     det_cfg, rec_cfg, reps = DET_CFG, REC_CFG, 5
@@ -903,21 +1000,23 @@ def phase_int8_slice(dev, card, pages, db):
     del ocr32, ocr_cpu
 
     ocr = OCRer(*args, det_quant=True, device=dev)  # bf16 default; run_many calibrates
-    int8_conv.launches = runmax.launches = 0
+    int8_conv.launches = runmax.launches = requant.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     q16 = flat(ocr.run_many(pages))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = int8_conv.launches, runmax.launches
+    launches = int8_conv.launches, runmax.launches, requant.launches
     check(launches[0] > 0, "the int8 main-path run launched no int8 conv kernel")
     check(launches[1] > 0, "the int8 main-path run launched no run-max kernel")
+    check(launches[2] > 0, "the int8 main-path run launched no requantize kernel")
     # int8 against float, both bf16, on the same batch: the JAX package's
     # bound for int8 prob maps of an untrained DB model (tests/test_quant.py:
     # mean |int8 - float| < 0.05), then the boxes
     batch = _det_batch(ocr.deter, pages)[0]
     m_int8 = ocr.deter.runner(batch)["maps"].float()
-    m_float = Deter(det_cfg, db["det_pt"], device=dev).runner(batch)["maps"].float()
+    deter_float = Deter(det_cfg, db["det_pt"], device=dev)
+    m_float = deter_float.runner(batch)["maps"].float()
     err = float((m_int8 - m_float).abs().mean())
     cc = float(torch.corrcoef(torch.stack([m_int8.flatten(), m_float.flatten()]))[0, 1])
     check(bool(((m_int8 >= 0) & (m_int8 <= 1)).all()) and err < 0.05,
@@ -925,8 +1024,8 @@ def phase_int8_slice(dev, card, pages, db):
     h = hmean(q16, db["bf16"])
     secs, lines = timed_runs(lambda: ocr.run_many(pages), reps)
     busy = device_time(lambda: ocr.run_many(pages), secs)
-    say("int8-bf16", "main path: int8_conv.launches %d, runmax.launches %d; first call %.3f s on %s"
-        % (launches + (first_s, card)))
+    say("int8-bf16", "main path: int8_conv.launches %d, runmax.launches %d, requant.launches %d; "
+        "first call %.3f s on %s" % (launches + (first_s, card)))
     say("int8-bf16", "int8 against float, both bf16: prob maps mean |diff| %.4f (bound 0.05), "
         "correlation %.4f; boxes hmean %.4f (%d and %d boxes, rectangle IoU >= 0.5), against the "
         ">= 0.9 that tests/test_quant.py:258 sets for a trained detector: the seeded head puts its "
@@ -940,7 +1039,91 @@ def phase_int8_slice(dev, card, pages, db):
     say("int8-bf16", "stages per %d-page call: %s on %s"
         % (PAGES, stage_breakdown(ocr.deter, pages, "db", ocr.recer), card))
     say("int8-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
+    forward_report(ocr.deter.runner, deter_float.runner, batch, card)
     return launches, ocr
+
+
+def forward_report(runner_q, runner_f, batch, card, rounds=10):
+    """The int8 and the float det forward (both bf16) on one batch, on the
+    host clock, each call ending in a sync, in `rounds` alternating pairs;
+    then where each one's time goes: card time by kernel (torch.profiler)
+    against the call's wall time, and, for int8, the host time spent inside
+    the port's int8 conv and requantize wrappers."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorchocr_tpu_torch.ops import int8_conv, requant
+
+    def once(runner):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    walls = {runner_q: [], runner_f: []}
+    once(runner_q), once(runner_f)
+    for i in range(rounds):
+        for r in (runner_q, runner_f) if i % 2 == 0 else (runner_f, runner_q):
+            walls[r].append(once(r))
+    tq, tf = walls[runner_q], walls[runner_f]
+    say("int8-bf16", "det forward, %d pages, %d alternating synced calls each: int8 median %.2f ms "
+        "(mean %.2f, min %.2f, max %.2f), float median %.2f ms (mean %.2f, min %.2f, max %.2f) on "
+        "%s" % (PAGES, rounds, statistics.median(tq), statistics.mean(tq), min(tq), max(tq),
+                statistics.median(tf), statistics.mean(tf), min(tf), max(tf), card))
+
+    host = {"int8_conv": [0.0, 0], "requant": [0.0, 0]}
+    wrapped = [(int8_conv, "int8_conv", "int8_conv")] + [(requant, n, "requant")
+                                                         for n in REQUANT_FNS]
+    originals = [getattr(mod, name) for mod, name, _ in wrapped]
+
+    def clocked(fn, family):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host[family][0] += time.perf_counter() - t0
+            host[family][1] += 1
+            return out
+        return call
+
+    for (mod, name, family), fn in zip(wrapped, originals):
+        setattr(mod, name, clocked(fn, family))
+    try:
+        wall_q = once(runner_q)
+    finally:
+        for (mod, name, _), fn in zip(wrapped, originals):
+            setattr(mod, name, fn)
+
+    for tag, runner in (("int8", runner_q), ("float", runner_f)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runner(batch)
+            torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+        groups = {}
+        for e in events:
+            key = ("int8_conv kernels" if "int8_conv_" in e.key else
+                   "requant kernels" if "requant_kernel" in e.key else e.key[:50])
+            g = groups.setdefault(key, [0.0, 0])
+            g[0] += e.self_device_time_total / 1e3
+            g[1] += e.count
+        busy = sum(g[0] for g in groups.values())
+        top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:8]
+        say("int8-bf16", "%s det forward under the profiler: wall %.2f ms, card busy %.2f ms over "
+            "%d kernels and copies, so the card waits %.2f ms; most: %s on %s"
+            % (tag, traced, busy, sum(g[1] for g in groups.values()), traced - busy,
+               "; ".join("%s %.3f ms x%d" % (k, v[0], v[1]) for k, v in top), card))
+    say("int8-bf16", "int8 det forward, one synced call of %.2f ms: host time inside the wrappers "
+        "int8_conv %.2f ms over %d calls, requant %.2f ms over %d calls (checks, allocation, the "
+        "ctypes launch) on %s"
+        % (wall_q, host["int8_conv"][0] * 1e3, host["int8_conv"][1], host["requant"][0] * 1e3,
+           host["requant"][1], card))
 
 
 def _conv_key(args):
@@ -951,110 +1134,384 @@ def _conv_key(args):
             bias is not None)
 
 
+def conv_bound(xq, wq, bias, y, groups):
+    """(bound ms, by, int8 ops, bytes, ms by ops, ms by bytes) of one int8
+    conv: 2 x MACs at 1,979 int8 TOP/s, or each input read once and the
+    output written once (its own element size) at 3.35 TB/s."""
+    cout, kh, kw, cg = wq.shape
+    ops = 2.0 * y.shape[0] * y.shape[2] * y.shape[3] * cout * kh * kw * cg
+    nbytes = (xq.numel() + wq.numel() + 4 * cout * (1 + (bias is not None))
+              + y.element_size() * y.numel())
+    by_ops, by_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return bound, by, ops, nbytes, by_ops, by_bytes
+
+
+CONV_EDGES = [(2, 3, 23, 30, 16, 7, 2, 3, 1, 1), (1, 24, 9, 31, 10, 3, 1, 1, 1, 1),
+              (2, 16, 15, 17, 8, 3, 1, 2, 2, 1), (1, 32, 7, 9, 40, 3, 1, 1, 1, 1),
+              (2, 96, 24, 48, 96, 5, 1, 2, 1, 96), (2, 8, 10, 10, 6, 3, 1, 1, 1, 2),
+              (1, 16, 7, 9, 24, 1, 1, 0, 1, 1), (1, 3, 30, 40, 128, 7, 2, 3, 1, 1),
+              (2, 24, 9, 64, 10, 3, 1, 1, 1, 1)]
+
+
+def conv_edge_args(dev, rng, case):
+    import numpy as np
+    import torch
+
+    n, cin, h, w, cout, k, st, pad, dil, g = case
+    xq = torch.from_numpy(rng.randint(-127, 128, (n, cin, h, w)).astype(np.int8)).to(dev)
+    xq = xq.contiguous(memory_format=torch.channels_last)
+    wq = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin // g)).astype(np.int8)).to(dev)
+    sc = torch.from_numpy((rng.rand(cout) * 1e-3).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(dev)
+    return (xq, wq, sc, b, (st, st), (pad, pad), (dil, dil), g)
+
+
 def phase_int8_conv(dev, card, ocr, pages):
     """The int8 conv kernel against its plain version on every QuantConv
-    call of one bf16 int8 forward of `ocr`'s det model over `pages`, and on
-    edge shapes; times and bounds per distinct shape. Returns the JSON row's
-    numbers, summed over the forward's calls."""
+    call of one bf16 int8 forward of `ocr`'s det model over `pages`, in
+    both output dtypes, and on edge shapes; times and bounds per distinct
+    shape and dtype. Returns the JSON row's numbers (bf16, the main path's
+    output) and the float32 ones, summed over the forward's calls."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from pytorchocr_tpu_torch.ops import int8_conv
 
-    calls = []
     wrapped = int8_conv.int8_conv
 
-    def record(*args):
-        calls.append(args)
-        return wrapped(*args)
+    def recorded(batch):
+        """The int8 conv calls of one forward of the det model over `batch`."""
+        calls, out_dtypes = [], []
 
-    int8_conv.int8_conv = record
-    try:
-        ocr.deter.runner(_det_batch(ocr.deter, pages)[0])
-    finally:
-        int8_conv.int8_conv = wrapped
-    torch.cuda.synchronize()
-    check(len(calls) > 0, "the int8 forward made no int8 conv call")
+        def record(*args, out_dtype=torch.float32):
+            calls.append(args)
+            out_dtypes.append(out_dtype)
+            return wrapped(*args, out_dtype=out_dtype)
 
+        int8_conv.int8_conv = record
+        try:
+            ocr.deter.runner(batch)
+        finally:
+            int8_conv.int8_conv = wrapped
+        torch.cuda.synchronize()
+        check(len(calls) > 0, "the int8 forward made no int8 conv call")
+        check(set(out_dtypes) == {torch.bfloat16}, "the bf16 int8 forward's convs wrote %s, not "
+              "bf16 alone" % sorted(map(str, set(out_dtypes))))
+        return calls
+
+    batch = _det_batch(ocr.deter, pages)[0]
+    calls = recorded(batch)
+    # the same pages turned portrait, as DB's resize (short side 736) gives
+    # them: the stem's output rows are 368 pixels, and its 128-pixel tiles
+    # run from the end of one row into the next
+    portrait = recorded(np.ascontiguousarray(batch.transpose(0, 2, 1, 3)[:, :PORTRAIT_H]))
+
+    dtypes = (torch.float32, torch.bfloat16)
     max_err, shapes = 0.0, {}
     for args in calls:
-        got, want = wrapped(*args), int8_conv.int8_conv_ref(*args)
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want), "int8_conv differs from the plain version at %s: %g"
-              % (_conv_key(args), err))
-        max_err = max(max_err, err)
+        for od in dtypes:
+            got, want = wrapped(*args, out_dtype=od), int8_conv.int8_conv_ref(*args, out_dtype=od)
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.equal(got, want), "int8_conv (%s) differs from the plain version at %s: %g"
+                  % (od, _conv_key(args), err))
+            max_err = max(max_err, err)
         shapes.setdefault(_conv_key(args), []).append(args)
+    for args in portrait:
+        for od in dtypes:
+            got, want = wrapped(*args, out_dtype=od), int8_conv.int8_conv_ref(*args, out_dtype=od)
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.equal(got, want), "int8_conv (%s) differs from the plain version at the "
+                  "portrait forward's %s: %g" % (od, _conv_key(args), err))
+            max_err = max(max_err, err)
     rng = np.random.RandomState(SEED + 6)
-    edge = [(2, 3, 23, 30, 16, 7, 2, 3, 1, 1), (1, 24, 9, 31, 10, 3, 1, 1, 1, 1),
-            (2, 16, 15, 17, 8, 3, 1, 2, 2, 1), (1, 32, 7, 9, 40, 3, 1, 1, 1, 1),
-            (2, 96, 24, 48, 96, 5, 1, 2, 1, 96), (2, 8, 10, 10, 6, 3, 1, 1, 1, 2)]
-    for n, cin, h, w, cout, k, st, pad, dil, g in edge:
-        xq = torch.from_numpy(rng.randint(-127, 128, (n, cin, h, w)).astype(np.int8)).to(dev)
-        xq = xq.contiguous(memory_format=torch.channels_last)
-        wq = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin // g)).astype(np.int8)).to(dev)
-        sc = torch.from_numpy((rng.rand(cout) * 1e-3).astype(np.float32)).to(dev)
-        b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(dev)
-        a = (xq, wq, sc, b, (st, st), (pad, pad), (dil, dil), g)
-        check(torch.equal(wrapped(*a), int8_conv.int8_conv_ref(*a)),
-              "int8_conv differs from the plain version at edge shape %s" % (_conv_key(a),))
-    say("int8", "int8_conv == plain (float32 bits) on all %d calls of the %d-page forward (%d "
-        "shapes) and %d edge shapes (Cin 3 and 24, dilation 2, Cout 40, depthwise, groups 2); "
-        "max_abs_err %g" % (len(calls), PAGES, len(shapes), len(edge), max_err))
+    for case in CONV_EDGES:
+        a = conv_edge_args(dev, rng, case)
+        for od in dtypes:
+            check(torch.equal(wrapped(*a, out_dtype=od), int8_conv.int8_conv_ref(*a, out_dtype=od)),
+                  "int8_conv (%s) differs from the plain version at edge shape %s"
+                  % (od, _conv_key(a)))
+    say("int8", "int8_conv == plain (float32 and bf16 bits) on all %d calls of the %d-page forward "
+        "(%d shapes; the forward wrote bf16), all %d of the same pages turned portrait (%dx%d) "
+        "and %d edge shapes (Cin 3 and 24, dilation 2, Cout 40, depthwise, groups 2, 1x1 Cin 16, "
+        "byte loads at Cout 128, an input patch of Cin 24); max_abs_err %g"
+        % (len(calls), PAGES, len(shapes), len(portrait), PORTRAIT_H, H, len(CONV_EDGES),
+           max_err))
 
-    total = dict(device_ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                 cudnn_ms=0.0, by_ops=0.0, by_bytes=0.0)
-    library_shapes = 0
+    def timed(args, od):
+        """(device ms back to back with the L2 cold, profiler ms and kernel
+        names of single launches with the L2 warm, the output)."""
+        xq, wq, scale, bias, stride, padding, dilation, groups = args
+        y = wrapped(*args, out_dtype=od)
+        dev_ms = stream_ms(lambda x_, y_: int8_conv.launch(
+            x_, wq, scale, bias, y_, stride, padding, dilation, groups), [xq, y])
+        prof_ms, names = kernel_ms(lambda: int8_conv.launch(
+            xq, wq, scale, bias, y, stride, padding, dilation, groups), iters=50)
+        return dev_ms, prof_ms, names, y
+
+    keys = ("device_ms", "profiler_ms", "wrapper_ms", "plain_ms", "bound_ms", "by_ops",
+            "by_bytes")
+    total = {od: dict.fromkeys(keys, 0.0) for od in dtypes}
+    total["library_ms"] = total["cudnn_ms"] = 0.0
+    library_calls, shares = 0, []
     for key, group in shapes.items():
         xq, wq, scale, bias, stride, padding, dilation, groups = group[0]
         n, cin, h, w, cout, kh, kw = key[:7]
-        y = wrapped(*group[0])
-        m = y.shape[0] * y.shape[2] * y.shape[3]
-        k = kh * kw * cin // groups
-        ops = 2.0 * m * cout * k
-        nbytes = xq.numel() + wq.numel() + 4 * cout * (1 + (bias is not None)) + 4 * y.numel()
-        by_ops, by_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        bound, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
-        dev_ms, parts = kernel_ms(lambda: int8_conv.launch(xq, wq, scale, bias, y, stride, padding,
-                                                           dilation, groups), iters=50)
-        wrap_ms = cuda_ms(lambda: wrapped(*group[0]), iters=20)
-        plain_ms = cuda_ms(lambda: int8_conv.int8_conv_ref(*group[0]), iters=3, warmup=1)
+        c = len(group)
+        parts = []
+        for od in dtypes:
+            dev_ms, prof_ms, names, y = timed(group[0], od)
+            bound, by, ops, nbytes, by_ops, by_bytes = conv_bound(xq, wq, bias, y, groups)
+            wrap_ms = cuda_ms(lambda: wrapped(*group[0], out_dtype=od), iters=20)
+            plain_ms = cuda_ms(lambda: int8_conv.int8_conv_ref(*group[0], out_dtype=od), iters=3,
+                               warmup=1)
+            for name, v in zip(keys, (dev_ms, prof_ms, wrap_ms, plain_ms, bound, by_ops,
+                                      by_bytes)):
+                total[od][name] += c * v
+            shares.append((100.0 * bound / dev_ms, "%s %s" % (key[:7], od)))
+            parts.append("%s: device %.4f ms (back to back, L2 cold), profiler %.4f ms (%s; L2 "
+                         "warm), wrapper %.4f ms, plain %.4f ms, bound %.4f ms by %s (%.2f G int8 "
+                         "ops = %.4f ms, %.1f MB = %.4f ms), %s of the bound"
+                         % ("f32" if od == torch.float32 else "bf16", dev_ms, prof_ms, names,
+                            wrap_ms, plain_ms, bound, by, ops / 1e9, by_ops, nbytes / 1e6,
+                            by_bytes, share(bound, dev_ms)))
         wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         xb = xq.to(torch.bfloat16)
         cudnn = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, padding, dilation, groups), iters=20)
+        total["cudnn_ms"] += c * cudnn
         lib = None
         if (kh, kw, groups) == (1, 1, 1) and tuple(stride) == (1, 1) and bias is None:
             a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin)  # (M, K) view of the NHWC payload
             b2 = wq.reshape(cout, cin).t()  # (K, N), column-major
+            y = wrapped(*group[0])
             check(torch.equal(torch._int_mm(a2, b2).float() * scale,
                               y.permute(0, 2, 3, 1).reshape(-1, cout)),
                   "torch._int_mm's product differs from the kernel's at %s" % (key,))
-            lib = cuda_ms(lambda: torch._int_mm(a2, b2), iters=20)
-            library_shapes += len(group)
-        c = len(group)
-        say("int8", "N%d Cin%d %dx%d -> Cout%d %dx%d/%d (x%d in the forward): device %.4f ms (%s), "
-            "wrapper %.4f ms, plain %.4f ms; bound %.4f ms by %s (%.2f G int8 ops at 1,979 T/s = "
-            "%.4f ms, %.1f MB at 3.35 TB/s = %.4f ms), %.0f%% of the bound; library_ms %s; cuDNN "
-            "bf16 conv %.4f ms (context) on %s"
-            % (n, cin, h, w, cout, kh, kw, stride[0], c, dev_ms, parts, wrap_ms, plain_ms, bound,
-               bound_by, ops / 1e9, by_ops, nbytes / 1e6, by_bytes, 100.0 * bound / dev_ms,
-               "%.4f ms (torch._int_mm, int32 product)" % lib if lib is not None else
-               "none (no PyTorch call computes an int8 convolution on CUDA)", cudnn, card))
-        for name, v in (("device_ms", dev_ms), ("wrapper_ms", wrap_ms), ("plain_ms", plain_ms),
-                        ("bound_ms", bound), ("cudnn_ms", cudnn), ("by_ops", by_ops),
-                        ("by_bytes", by_bytes)):
-            total[name] += c * v
-        if lib is not None:
+            lib = stream_ms(torch._int_mm, [a2, b2])
+            library_calls += c
             total["library_ms"] += c * lib
-    total["bound_by"] = "operations" if total["by_ops"] >= total["by_bytes"] else "bytes"
-    say("int8", "one %d-page forward, %d calls: device %.3f ms, wrapper %.3f ms, plain %.3f ms, "
-        "bound %.3f ms (%.0f%%), cuDNN bf16 %.3f ms; torch._int_mm %.3f ms over the %d 1x1 "
-        "stride-1 calls on %s" % (PAGES, len(calls), total["device_ms"], total["wrapper_ms"],
-                                  total["plain_ms"], total["bound_ms"],
-                                  100.0 * total["bound_ms"] / total["device_ms"], total["cudnn_ms"],
-                                  total["library_ms"], library_shapes, card))
-    total.update(max_abs_err=max_err, calls=len(calls), library_calls=library_shapes)
-    return total
+        say("int8", "N%d Cin%d %dx%d -> Cout%d %dx%d/%d (x%d in the forward): %s; library_ms %s; "
+            "cuDNN bf16 conv %.4f ms (CUDA events around a loop of calls; context) on %s"
+            % (n, cin, h, w, cout, kh, kw, stride[0], c, "; ".join(parts),
+               "%.4f ms (torch._int_mm, int32 product, back to back, L2 cold)" % lib
+               if lib is not None else
+               "none (no PyTorch call computes an int8 convolution on CUDA)", cudnn, card))
+    for od in dtypes:
+        t = total[od]
+        t["bound_by"] = "operations" if t["by_ops"] >= t["by_bytes"] else "bytes"
+        say("int8", "one %d-page forward, %d calls, %s output: device %.3f ms (back to back, L2 "
+            "cold; profiler, L2 warm: %.3f ms), wrapper %.3f ms, plain %.3f ms, bound %.3f ms by "
+            "%s (%s) on %s"
+            % (PAGES, len(calls), od, t["device_ms"], t["profiler_ms"], t["wrapper_ms"],
+               t["plain_ms"], t["bound_ms"], t["bound_by"], share(t["bound_ms"], t["device_ms"]),
+               card))
+    stem = next(a for a in portrait if a[0].shape[1] == 3)
+    parts, portrait_ms = [], {}
+    for od in dtypes:
+        dev_ms, prof_ms, names, y = timed(stem, od)
+        bound = conv_bound(stem[0], stem[1], stem[3], y, stem[7])[0]
+        portrait_ms[od] = dev_ms
+        parts.append("%s: device %.4f ms (back to back, L2 cold), profiler %.4f ms (%s; L2 warm), "
+                     "bound %.4f ms, %s of the bound"
+                     % ("f32" if od == torch.float32 else "bf16", dev_ms, prof_ms, names, bound,
+                        share(bound, dev_ms)))
+    say("int8", "the stem of %d portrait pages (%dx%d -> %dx%d: 128-pixel tiles straddle output "
+        "rows), input patch in two segments: %s on %s"
+        % (PAGES, PORTRAIT_H, H, y.shape[2], y.shape[3], "; ".join(parts), card))
+    say("int8", "cuDNN bf16 convs of the same shapes %.3f ms (context); torch._int_mm %.3f ms over "
+        "the %d 1x1 stride-1 calls; shapes under half their bound: %s"
+        % (total["cudnn_ms"], total["library_ms"], library_calls,
+           ", ".join("%s %.0f%%" % (k, v) for v, k in sorted(shares) if v < 50) or "none"))
+    row = dict(total[torch.bfloat16], max_abs_err=max_err, calls=len(calls),
+               library_calls=library_calls, library_ms=total["library_ms"],
+               f32=total[torch.float32], portrait_stem_ms=portrait_ms[torch.bfloat16],
+               portrait_stem_f32_ms=portrait_ms[torch.float32])
+    return row
+
+
+REQUANT_FNS = ("quantize", "dequant", "add_act_quantize")
+
+
+def _requant_key(name, args):
+    import torch
+
+    t = [a for a in args if torch.is_tensor(a) and a.dim() > 0]
+    fmt = "cl" if not t[0].is_contiguous() else "contig"
+    return (name, tuple(t[0].shape), tuple(str(a.dtype).split(".")[-1] for a in t), fmt,
+            tuple(a for a in args if not torch.is_tensor(a) and a is not None))
+
+
+def _requant_ref(name):
+    from pytorchocr_tpu_torch.ops import requant
+
+    return getattr(requant, name + "_ref")
+
+
+def _rotating(fn, args):
+    """(launch, tensors) for stream_ms: `launch(*tensors)` calls `fn` on
+    `args` with its tensors that have dimensions replaced by `tensors`."""
+    import torch
+
+    at = [i for i, a in enumerate(args) if torch.is_tensor(a) and a.dim() > 0]
+
+    def launch(*tensors):
+        a = list(args)
+        for i, t in zip(at, tensors):
+            a[i] = t
+        return fn(*a)
+
+    return launch, [args[i] for i in at]
+
+
+def requant_edges(dev):
+    """(name, args) edge inputs: exact ties, saturation, -0.0, odd sizes,
+    unaligned views, both memory formats, every operand combination."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 8)
+    k = rng.randint(-130, 130, (2, 16, 9, 13)).astype(np.float32)
+    ties = torch.from_numpy((k + 0.5) * 0.25).to(dev)  # x / 0.25 = k + 0.5 exactly
+    x = torch.from_numpy((rng.randn(3, 5, 7, 11) * 0.9).astype(np.float32)).to(dev)
+    x.view(-1)[:4] = torch.tensor([0.0, -0.0, 1e30, -1e30])
+    s, s2 = torch.tensor(0.25, device=dev), torch.tensor(0.0071, device=dev)
+    flat = torch.from_numpy((rng.randn(4099 + 3) * 0.5).astype(np.float32)).to(dev)
+    cases = [("quantize", (ties, s)), ("quantize", (ties.bfloat16(), s)), ("quantize", (x, s2)),
+             ("quantize", (x.contiguous(memory_format=torch.channels_last), s2)),
+             ("quantize", (x.bfloat16(), s2)), ("quantize", (flat[3:], s2))]
+    q = torch.from_numpy(rng.randint(-127, 128, (3, 5, 7, 11)).astype(np.int8)).to(dev)
+    q2 = torch.from_numpy(rng.randint(-127, 128, (3, 5, 7, 11)).astype(np.int8)).to(dev)
+    qf = torch.from_numpy(rng.randint(-127, 128, 4099 + 1).astype(np.int8)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [("dequant", (q, s2, dtype)), ("dequant", (qf[1:], s2, dtype))]
+    ops = {"i8": (q, s2), "f32": (x, None), "bf16": (x.bfloat16(), None)}
+    other = {"i8": (q2, s), "f32": (x * 0.7, None), "bf16": ((x * 0.7).bfloat16(), None)}
+    for ka in ops:
+        for kb in other:
+            for relu in (False, True):
+                (a, sa), (b, sb) = ops[ka], other[kb]
+                cases.append(("add_act_quantize", (a, b, sa, sb, s2, relu)))
+    cl = torch.channels_last
+    cases.append(("add_act_quantize", (q.contiguous(memory_format=cl),
+                                       x.contiguous(memory_format=cl), s2, None, s2, True)))
+    cases.append(("add_act_quantize", (qf[1:], flat[3:], s2, None, s2, True)))
+    return cases
+
+
+def phase_requant(dev, card, ocr, pages):
+    """The requantize kernel (csrc/requant.cu) against its plain version on
+    every call of one bf16 int8 forward and on edge inputs; device time,
+    bound and calls per shape. Then the path check: torch.profiler's op
+    list of the det model's int8 bf16 forward alone holds no aten::round
+    and no aten::clamp, and the kernel's count rose. Returns the JSON row's
+    numbers, summed over the forward's calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorchocr_tpu_torch.ops import quant, requant
+
+    calls = []
+    originals = {name: getattr(requant, name) for name in REQUANT_FNS}
+
+    def recorder(name):
+        def call(*args):
+            calls.append((name, args))
+            return originals[name](*args)
+        return call
+
+    for name in REQUANT_FNS:
+        setattr(requant, name, recorder(name))
+    try:
+        ocr.deter.runner(_det_batch(ocr.deter, pages)[0])
+    finally:
+        for name in REQUANT_FNS:
+            setattr(requant, name, originals[name])
+    torch.cuda.synchronize()
+    check(len(calls) > 0, "the int8 forward made no requantize call")
+    shapes, max_err = {}, 0.0
+    edges = requant_edges(dev)
+    for i, (name, args) in enumerate(calls + edges):
+        got, want = originals[name](*args), _requant_ref(name)(*args)
+        check(torch.equal(got, want), "requant.%s differs from the plain version at %s%s"
+              % (name, "edge input " if i >= len(calls) else "", _requant_key(name, args)))
+        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        if i < len(calls):
+            shapes.setdefault(_requant_key(name, args), []).append((name, args))
+    say("requant", "requant == plain (bits) on all %d calls of the %d-page int8 bf16 forward (%d "
+        "shapes: %s) and %d edge inputs (exact ties, saturation, -0.0, odd and unaligned sizes, "
+        "channels_last, every operand combination of the add, relu on and off); max_abs_err %g"
+        % (len(calls), PAGES, len(shapes), ", ".join("%s x%d" % (n, sum(c[0] == n for c in calls))
+                                                     for n in REQUANT_FNS), len(edges), max_err))
+
+    total = dict(device_ms=0.0, profiler_ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=0.0, library_kernel_ms=0.0)
+    library_calls = 0
+    for key, group in shapes.items():
+        name, args = group[0]
+        out = originals[name](*args)
+        ins = [a for a in args if torch.is_tensor(a)]
+        nbytes = sum(a.numel() * a.element_size() for a in ins) + out.numel() * out.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        dev_ms = stream_ms(*_rotating(originals[name], args))
+        prof_ms, names = kernel_ms(lambda: originals[name](*args), iters=50)
+        wrap_ms = cuda_ms(lambda: originals[name](*args), iters=20)
+        plain_ms = cuda_ms(lambda: _requant_ref(name)(*args), iters=10)
+        c = len(group)
+        for k, v in (("device_ms", dev_ms), ("profiler_ms", prof_ms), ("wrapper_ms", wrap_ms),
+                     ("plain_ms", plain_ms), ("bound_ms", bound)):
+            total[k] += c * v
+        lib = "none (no single PyTorch call computes it)"
+        if name == "dequant":
+            # torch.mul of the int8 payload by the 0-d float32 scale computes
+            # float(q) * scale in float32 and rounds it to the out tensor's
+            # dtype, in one kernel: the same function
+            q, scale, dtype = args
+            y = torch.empty_like(q, dtype=dtype)
+            torch.mul(q, scale, out=y)
+            check(torch.equal(y, out), "torch.mul(q, scale, out=%s) differs from requant.dequant at "
+                  "%s" % (dtype, key))
+            lib_ms = stream_ms(lambda q_, y_: torch.mul(q_, scale, out=y_), [q, y])
+            total["library_ms"] += c * lib_ms
+            total["library_kernel_ms"] += c * dev_ms
+            library_calls += c
+            lib = "%.4f ms (torch.mul(q, scale, out=%s), bit-equal; back to back, L2 cold)" % (
+                lib_ms, str(dtype).split(".")[-1])
+        say("requant", "%s (x%d in the forward): device %.4f ms (back to back, L2 cold), profiler "
+            "%.4f ms (%s; L2 warm), wrapper %.4f ms, plain %.4f ms; bound %.4f ms by bytes (%.1f MB "
+            "at 3.35 TB/s), %s of the bound; library_ms %s on %s"
+            % (key, c, dev_ms, prof_ms, names, wrap_ms, plain_ms, bound, nbytes / 1e6,
+               share(bound, dev_ms), lib, card))
+    say("requant", "one %d-page forward, %d calls: device %.3f ms (back to back, L2 cold; "
+        "profiler, L2 warm: %.3f ms), wrapper %.3f ms, plain %.3f ms, bound %.3f ms by bytes (%s); "
+        "library_ms %.4f ms over the %d dequant calls (torch.mul; the kernel %.4f ms on them), "
+        "none for quantize and the residual requantize (torch.quantize_per_tensor multiplies by "
+        "1 / scale and clamps to -128: another function) on %s"
+        % (PAGES, len(calls), total["device_ms"], total["profiler_ms"], total["wrapper_ms"],
+           total["plain_ms"], total["bound_ms"], share(total["bound_ms"], total["device_ms"]),
+           total["library_ms"], library_calls, total["library_kernel_ms"], card))
+
+    # the path check: the model's forward alone, as Runner._forward runs it
+    runner = ocr.deter.runner
+    x = torch.from_numpy(_det_batch(ocr.deter, pages)[0]).to(dev).float()
+    x = ((x / 255.0 - runner.mean) / runner.std).permute(0, 3, 1, 2)
+    with torch.inference_mode(), quant.quantized(runner.model, "int8"), \
+            torch.autocast("cuda", dtype=runner.dtype):
+        runner.model(x)
+        torch.cuda.synchronize()
+        before = requant.launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            runner.model(x)
+            torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    bad = sorted(ops & {"aten::round", "aten::clamp"})
+    check(not bad, "the int8 bf16 det forward still runs %s" % bad)
+    check(requant.launches > before, "the int8 bf16 det forward launched no requantize kernel")
+    say("requant", "path: the det model's int8 bf16 forward (%s) runs %d requantize kernels and no "
+        "aten::round or aten::clamp (%d ops in the profiler's list: %s)"
+        % (runner.dtype, requant.launches - before, len(ops), ", ".join(sorted(
+            k for k in ops if k.startswith("aten::")))))
+    return dict(total, max_abs_err=max_err, calls=len(calls), library_calls=library_calls)
 
 
 def phase_cls(dev, card, tmp, pages, db):
@@ -1342,13 +1799,14 @@ def device_time(fn, call_s):
     if busy_ms == 0:
         return "the trace holds no device time: not measured"
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
-    ours = [e for e in events if "runmax_" in e.key or "propagate_tile" in e.key]
+    ours = [e for e in events if any(k in e.key for k in (
+        "runmax_", "propagate_tile", "int8_conv_", "requant_kernel"))]
     return "card busy %.1f ms of a %.1f ms call (%.1f%%); most: %s; the port's kernels: %s" % (
         busy_ms, call_s * 1e3, 100.0 * busy_ms / (call_s * 1e3),
         "; ".join("%s %.2f ms" % (e.key[:60], e.self_device_time_total / 1e3) for e in top),
         "; ".join("%s %.3f ms over %d records" % (
-            e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1],
-            e.self_device_time_total / 1e3, e.count) for e in ours) or "none traced",
+            kernel_name(e.key), e.self_device_time_total / 1e3, e.count) for e in ours)
+        or "none traced",
     )
 
 
@@ -1408,6 +1866,10 @@ def forbidden_modules():
                   if m.split(".")[0] in ("jax", "flax", "pytorchocr_tpu"))
 
 
+STREAMED = ("back-to-back launches in one CUDA graph over rotating copies of the inputs and "
+            "outputs that hold 4x the L2, CUDA events over the graph / launches (stream_ms)")
+
+
 def main():
     try:
         import torch
@@ -1435,15 +1897,16 @@ def main():
         db_k1, db = phase_slice(dev, card, tmp, pages)
         pse_k1, pse_k2 = phase_pse(dev, card, tmp, pages, db["rec_pt"])
         pan_k1 = phase_pan(dev, card, tmp, pages)
-        (q8_conv, q8_k1), ocr_q8 = phase_int8_slice(dev, card, pages, db)
+        (q8_conv, q8_k1, q8_rq), ocr_q8 = phase_int8_slice(dev, card, pages, db)
         q8 = phase_int8_conv(dev, card, ocr_q8, pages)
+        rq = phase_requant(dev, card, ocr_q8, pages)
         del ocr_q8
         phase_cls(dev, card, tmp, pages, db)
     bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
     say("done", "main-path launches: K1 %d (DB %d, PSE %d, PAN %d, int8 DB %d), K2 %d (PSE), "
-        "int8_conv %d (int8 DB); all phases %.1f s"
-        % (db_k1 + pse_k1 + pan_k1 + q8_k1, db_k1, pse_k1, pan_k1, q8_k1, pse_k2, q8_conv,
+        "int8_conv %d and requant %d (int8 DB); all phases %.1f s"
+        % (db_k1 + pse_k1 + pan_k1 + q8_k1, db_k1, pse_k1, pan_k1, q8_k1, pse_k2, q8_conv, q8_rq,
            time.perf_counter() - t0))
 
     kernels = []
@@ -1457,7 +1920,8 @@ def main():
             launches=launches, max_abs_err=row["max_abs_err"], ms=row["device_ms"],
             device_ms=row["device_ms"], wrapper_ms=row["wrapper_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
-            library_note=NO_LIBRARY[name],
+            library_note=NO_LIBRARY[name], timing="torch.profiler's mean card duration of a "
+            "launch, back to back with the same inputs (L2 warm)",
         ))
     kernels.append(dict(
         name="int8_conv", route="cuda", source="pytorchocr_tpu_torch/csrc/int8_conv.cu",
@@ -1465,11 +1929,27 @@ def main():
         max_abs_err=q8["max_abs_err"], ms=q8["device_ms"], device_ms=q8["device_ms"],
         wrapper_ms=q8["wrapper_ms"], plain_ms=q8["plain_ms"], bound_ms=q8["bound_ms"],
         bound_by=q8["bound_by"], library_ms=q8["library_ms"],
-        per="one %d-page %dx%d DB-ResNet18 int8 forward: the sum over its %d int8 convs"
-            % (PAGES, H, W, q8["calls"]),
+        f32_device_ms=q8["f32"]["device_ms"], f32_bound_ms=q8["f32"]["bound_ms"],
+        per="one %d-page %dx%d DB-ResNet18 int8 forward, bf16 output (the main path's): the sum "
+            "over its %d int8 convs" % (PAGES, H, W, q8["calls"]),
+        timing=STREAMED, portrait_stem_ms=q8["portrait_stem_ms"],
         library_note="torch._int_mm (the same int32 product) on the %d 1x1 stride-1 convs of "
                      "the %d; no PyTorch call computes the others (an int8 convolution on CUDA)"
                      % (q8["library_calls"], q8["calls"]),
+    ))
+    kernels.append(dict(
+        name="requant", route="cuda", source="pytorchocr_tpu_torch/csrc/requant.cu",
+        replaces="pytorchocr_tpu/ops/quant.py:119", launches=q8_rq,
+        max_abs_err=rq["max_abs_err"], ms=rq["device_ms"], device_ms=rq["device_ms"],
+        wrapper_ms=rq["wrapper_ms"], plain_ms=rq["plain_ms"], bound_ms=rq["bound_ms"],
+        bound_by="bytes", library_ms=rq["library_ms"],
+        per="one %d-page %dx%d DB-ResNet18 int8 bf16 forward: the sum over its %d quantize, "
+            "dequant and residual requantize calls" % (PAGES, H, W, rq["calls"]),
+        timing=STREAMED,
+        library_note="torch.mul(q, scale, out=<bf16>) (bit-equal) on the %d dequant calls of the "
+                     "%d, where the kernel takes %.4f ms; no single PyTorch call quantizes or "
+                     "requantizes an add" % (rq["library_calls"], rq["calls"],
+                                             rq["library_kernel_ms"]),
     ))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-Each `csrc/<name>.cu` exposes a plain C interface. At first use it is compiled
+Each `csrc/<name>.cu` exposes a plain C interface (one or more entry points). At first use it is compiled
 with nvcc for Hopper (`sm_90a`) into a shared library under `_build/` (listed
 in .gitignore) and loaded with ctypes. The library's file name carries a hash
 of the source and the flags, so an edited source rebuilds. Nothing is built at
@@ -26,11 +26,16 @@ _loaded = {}
 build_log = {}  # name -> (seconds, nvcc's stderr with the -Xptxas -v report)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signatures: name -> (symbol, argtypes)
+# C signatures: library name -> {symbol: argtypes}; the first symbol is the default
 SIGNATURES = {
-    "runmax": ("runmax_launch", [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
-    "propagate": ("propagate_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "int8_conv": ("int8_conv_launch", [_P] * 5 + [_I] * 16 + [_P]),
+    "runmax": {"runmax_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]},
+    "propagate": {"propagate_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "int8_conv": {"int8_conv_launch": [_P] * 5 + [_I] * 17 + [_P]},
+    "requant": {
+        "requant_quantize": [_P, _I, _P, _P, _L, _P],
+        "requant_dequant": [_P, _P, _P, _I, _L, _P],
+        "requant_add": [_P, _I, _P, _P, _I, _P, _P, _P, _L, _I, _P],
+    },
 }
 
 
@@ -84,16 +89,16 @@ def build(names):
     return libs
 
 
-def load(name):
-    """Return the ctypes function of kernel library `name`, building it first
-    if needed."""
-    if name not in _loaded:
-        symbol, argtypes = SIGNATURES[name]
+def load(name, symbol=None):
+    """Return the ctypes function `symbol` (default: the library's first) of
+    kernel library `name`, building the library first if needed."""
+    symbol = symbol or next(iter(SIGNATURES[name]))
+    if (name, symbol) not in _loaded:
         fn = getattr(ctypes.CDLL(build([name])[name]), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = SIGNATURES[name][symbol]
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return _loaded[name]
+        _loaded[name, symbol] = fn
+    return _loaded[name, symbol]
 
 
 def call(fn, device, *args):

@@ -6,14 +6,22 @@ reverse).
   python -m pytorchocr_tpu_torch.compare_kernels OLD/pytorchocr_tpu_torch/csrc [DIR ...]
 
 Run from the root of a checkout: it times with chip_smoke.kernel_ms, on
-chip_smoke's 736x1280 and 184x320 text-like inputs (K1) and its 736x1280
-nested case (K2), and holds every build's outputs against the plain
-PyTorch versions first. Each DIR is named by its last component and timed
-on whichever of runmax.cu and propagate.cu it holds; a DIR named probe*
-holds a build that skips work on purpose (fewer rounds, say), which is
-timed and not checked. A runmax.cu without the `scratch_ints` argument has
-the first port's C interface: runmax_launch(vals, mask, out, prev,
-changed, H, W, axis, stream).
+chip_smoke's 736x1280 and 184x320 text-like inputs (K1), its 736x1280
+nested case (K2), the 29 int8 convs of a 4-page 736x1280 DB-ResNet18
+forward (DB_INT8_CONVS, random int8 data) and the stem of the same pages
+turned portrait (PORTRAIT_INT8_CONVS), and holds every build's outputs
+against the plain PyTorch versions first. Times are chip_smoke.kernel_ms's
+(torch.profiler's card durations of single launches, the L2 warm): a fair
+old-against-new ratio; chip_smoke.stream_ms gives the bound's shares. Each DIR is named by its last
+component and timed on whichever of runmax.cu, propagate.cu and
+int8_conv.cu it holds; a DIR named probe* holds a build that skips work on
+purpose (fewer rounds, say), which is timed and not checked. A runmax.cu
+without the `scratch_ints` argument has the first port's C interface:
+runmax_launch(vals, mask, out, prev, changed, H, W, axis, stream); an
+int8_conv.cu without `out_bf16` the first one's, float32 output only:
+int8_conv_launch(x, w, scale, bias, y, N, H, W, Cin, Cout, kh, kw, Ho, Wo,
+sh, sw, ph, pw, dh, dw, groups, stream). For the int8 convs it prints each
+shape's times and bound and each build's sum over the forward.
 """
 
 import ctypes
@@ -24,41 +32,66 @@ import tempfile
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FIRST_RUNMAX = [_P, _P, _P, _P, _P, _I, _I, _I, _P]  # the first port's runmax_launch
+FIRST_INT8_CONV = [_P] * 5 + [_I] * 16 + [_P]  # float32 output only
 
-
-def _build(src, lib):
-    from . import _kernels
-
-    proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit("nvcc failed on %s:\n%s" % (src, proc.stderr))
-    return ctypes.CDLL(lib)
+# (Cin, H, W, Cout, k, stride, padding, calls) of the int8 convs of one
+# 4-page 736x1280 DB-ResNet18 + FPN 256 + DBHead forward (chip_smoke phase 9)
+DB_INT8_CONVS = [
+    (3, 736, 1280, 64, 7, 2, 3, 1),  # stem
+    (64, 184, 320, 64, 3, 1, 1, 4), (64, 184, 320, 128, 3, 2, 1, 1),  # layers 1-2
+    (128, 92, 160, 128, 3, 1, 1, 3), (64, 184, 320, 128, 1, 2, 0, 1),
+    (128, 92, 160, 256, 3, 2, 1, 1), (256, 46, 80, 256, 3, 1, 1, 3),  # layer 3
+    (128, 92, 160, 256, 1, 2, 0, 1), (256, 46, 80, 512, 3, 2, 1, 1),  # layer 4
+    (512, 23, 40, 512, 3, 1, 1, 3), (256, 46, 80, 512, 1, 2, 0, 1),
+    (512, 23, 40, 256, 1, 1, 0, 1), (256, 46, 80, 256, 1, 1, 0, 1),  # FPN laterals
+    (128, 92, 160, 256, 1, 1, 0, 1), (64, 184, 320, 256, 1, 1, 0, 1),
+    (256, 23, 40, 64, 3, 1, 1, 1), (256, 46, 80, 64, 3, 1, 1, 1),  # FPN out convs
+    (256, 92, 160, 64, 3, 1, 1, 1), (256, 184, 320, 64, 3, 1, 1, 2),  # out2, head conv1
+]
+# the stem of the same 4 pages turned portrait (1056x736, DB's resize keeps
+# the short side at 736): 368-pixel output rows, no multiple of the tile;
+# timed beside the forward, not in its sum
+PORTRAIT_INT8_CONVS = [(3, 1056, 736, 64, 7, 2, 3, 1)]
 
 
 def _load(dirs, tmp):
-    """{name: {"runmax": (fn, first_interface), "propagate": fn}} for the
-    current sources and `dirs`."""
+    """{name: {"runmax": (fn, first_interface), "propagate": fn,
+    "int8_conv": (fn, first_interface)}} for the current sources and `dirs`,
+    one nvcc per source, all started together."""
     from . import _kernels
 
-    builds = {}
+    procs = []  # (name, kernel, source, library, nvcc process)
     for i, d in enumerate([_kernels.SRC_DIR] + dirs):
         name = "current" if i == 0 else os.path.basename(os.path.normpath(d))
+        for kernel in ("runmax", "propagate", "int8_conv"):
+            src = os.path.join(d, kernel + ".cu")
+            if os.path.exists(src):
+                lib = os.path.join(tmp, "lib%s_%d.so" % (kernel, i))
+                procs.append((name, kernel, src, lib, subprocess.Popen(
+                    [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", lib, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    builds = {}
+    for name, kernel, src, lib, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit("nvcc failed on %s:\n%s" % (src, err))
+        with open(src) as f:
+            text = f.read()
+        fn = getattr(ctypes.CDLL(lib), kernel + "_launch")
+        fn.restype = _I
         got = builds.setdefault(name, {})
-        src = os.path.join(d, "runmax.cu")
-        if os.path.exists(src):
-            with open(src) as f:
-                first = "scratch_ints" not in f.read()
-            fn = _build(src, os.path.join(tmp, "librunmax_%d.so" % i)).runmax_launch
-            fn.argtypes = FIRST_RUNMAX if first else _kernels.SIGNATURES["runmax"][1]
-            fn.restype = _I
-            got["runmax"] = (fn, first)
-        src = os.path.join(d, "propagate.cu")
-        if os.path.exists(src):
-            fn = _build(src, os.path.join(tmp, "libpropagate_%d.so" % i)).propagate_launch
-            fn.argtypes = _kernels.SIGNATURES["propagate"][1]
-            fn.restype = _I
-            got["propagate"] = fn
+        if kernel == "runmax":
+            first = "scratch_ints" not in text
+            fn.argtypes = FIRST_RUNMAX if first else _kernels.SIGNATURES["runmax"]["runmax_launch"]
+            got[kernel] = (fn, first)
+        elif kernel == "propagate":
+            fn.argtypes = _kernels.SIGNATURES["propagate"]["propagate_launch"]
+            got[kernel] = fn
+        else:
+            first = "out_bf16" not in text
+            fn.argtypes = FIRST_INT8_CONV if first else _kernels.SIGNATURES["int8_conv"][
+                "int8_conv_launch"]
+            got[kernel] = (fn, first)
     return builds
 
 
@@ -105,6 +138,48 @@ def _cases(smoke, dev, stream):
         want, _ = propagate.propagate_rounds_ref(dl.cpu(), dm.cpu(), fill_only)
         cases.append(("K2 %dx%d nested %s rule" % (smoke.H, smoke.W, "fill" if fill_only else "CC"),
                       "propagate", go, out, want))
+    return cases + _int8_cases(smoke, dev, stream)
+
+
+def _int8_cases(smoke, dev, stream):
+    """The DB forward's int8 convs, each in float32 and in bf16 output (a
+    first-interface build takes float32 only); the case label carries the
+    shape's call count and its bound."""
+    import numpy as np
+    import torch
+
+    from .ops import int8_conv
+
+    cases = []
+    rng = np.random.RandomState(smoke.SEED + 9)
+    for i, (cin, h, w, cout, k, st, pad, calls) in enumerate(DB_INT8_CONVS + PORTRAIT_INT8_CONVS):
+        in_forward = i < len(DB_INT8_CONVS)
+        n = smoke.PAGES
+        xq = torch.from_numpy(rng.randint(-127, 128, (n, cin, h, w)).astype(np.int8)).to(dev)
+        xq = xq.contiguous(memory_format=torch.channels_last)
+        wq = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)).to(dev)
+        scale = torch.from_numpy((rng.rand(cout) * 1e-3).astype(np.float32)).to(dev)
+        ho, wo = int8_conv.out_size(h, w, k, k, st, pad, 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = torch.empty((n, ho, wo, cout), dtype=dtype, device=dev).permute(0, 3, 1, 2)
+            bound = smoke.conv_bound(xq, wq, None, y, 1)
+            want = int8_conv.int8_conv_ref(xq, wq, scale, None, st, pad, 1, 1, dtype).cpu()
+
+            def go(build, xq=xq, wq=wq, scale=scale, y=y, st=st, pad=pad, k=k, ho=ho, wo=wo,
+                   bf16=dtype == torch.bfloat16):
+                fn, first = build["int8_conv"]
+                if first and bf16:
+                    return None  # the first interface writes float32 only
+                rest = () if first else (int(bf16),)
+                return fn(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), None, y.data_ptr(),
+                          xq.shape[0], xq.shape[2], xq.shape[3], xq.shape[1], wq.shape[0], k, k,
+                          ho, wo, st, st, pad, pad, 1, 1, 1, *rest, stream)
+
+            label = "int8 conv %d %dx%d -> %d %dx%d/%d %s (%s; bound %.4f ms by %s)" % (
+                cin, h, w, cout, k, k, st, "f32" if dtype == torch.float32 else "bf16",
+                "x%d" % calls if in_forward else "portrait, not in the forward", bound[0],
+                bound[1])
+            cases.append((label, "int8_conv", go, y, want, calls, bound[0], in_forward))
     return cases
 
 
@@ -118,11 +193,13 @@ def main(dirs):
     dev = torch.device("cuda:0")
     card = smoke.card_line()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    forward = {}  # (build, dtype) -> [device ms, bound ms] summed over the DB forward's convs
     with tempfile.TemporaryDirectory() as tmp:
         builds = _load(dirs, tmp)
-        for label, kernel, go, out, want in _cases(smoke, dev, stream):
-            names = [n for n in builds if n != "current" and kernel in builds[n]]
-            if not names:
+        for label, kernel, go, out, want, *weight in _cases(smoke, dev, stream):
+            names = [n for n in builds if n != "current" and kernel in builds[n]
+                     and go(builds[n]) is not None]
+            if not names and not weight:  # the int8 convs are timed on the current build alone too
                 continue
             for name in names + ["current"]:
                 smoke.check(go(builds[name]) == 0, "%s, %s: launch failed" % (label, name))
@@ -137,6 +214,16 @@ def main(dirs):
             smoke.say("compare", "%s, device ms: %s on %s" % (label, "; ".join(
                 "%s %s" % (n, " / ".join("%.4f" % t for t in ts)) for n, ts in times.items()),
                 card))
+            if weight and weight[2]:  # an int8 conv of the forward: (calls, bound ms, True)
+                calls, bound, _ = weight
+                for n, ts in times.items():
+                    acc = forward.setdefault((n, label.split(" (")[0].split()[-1]), [0.0, 0.0])
+                    acc[0] += calls * sum(ts) / len(ts)
+                    acc[1] += calls * bound
+        for (n, dtype), (ms, bound) in forward.items():
+            smoke.say("compare", "int8 conv, one %d-page DB forward, %s output, build %s: device "
+                      "%.3f ms (mean of its turns), bound %.3f ms, %.0f%% of the bound on %s"
+                      % (smoke.PAGES, dtype, n, ms, bound, 100.0 * bound / ms, card))
 
 
 if __name__ == "__main__":

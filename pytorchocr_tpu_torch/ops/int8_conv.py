@@ -1,13 +1,15 @@
 """int8 convolution with an exact int32 sum and a float32 dequant — the
 port's counterpart of the int8 conv that XLA lowers for the JAX package
-(pytorchocr_tpu/ops/quant.py:252-255, `lax.conv_general_dilated(xq, wq,
-preferred_element_type=int32)` then `* (s_x * s_w)`). It replaces no Pallas
-kernel; PyTorch has no int8 convolution on CUDA.
+(pytorchocr_tpu/ops/quant.py:252-259, `lax.conv_general_dilated(xq, wq,
+preferred_element_type=int32)` then `* (s_x * s_w)`, the bias and the cast to
+the compute dtype). It replaces no Pallas kernel; PyTorch has no int8
+convolution on CUDA.
 
-    y[n, oc, ho, wo] = float32(sum_k xq * wq) * scale[oc] (+ bias[oc])
+    y[n, oc, ho, wo] = out_dtype(float32(sum_k xq * wq) * scale[oc] (+ bias[oc]))
 
-with the multiply and the add rounded separately (no fused multiply-add), so
-the kernel's float32 output equals the plain version's bit for bit.
+with the multiply and the add rounded separately (no fused multiply-add) and
+the float32 result rounded once to `out_dtype` (float32 or bf16), so the
+kernel's output equals the plain version's bit for bit.
 
 On a CUDA tensor `int8_conv` launches the hand-written kernel
 `csrc/int8_conv.cu` or raises; on a CPU tensor it runs the plain PyTorch
@@ -32,17 +34,19 @@ def out_size(h, w, kh, kw, stride, padding, dilation):
             (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1)
 
 
-def int8_conv_ref(xq, wq, scale, bias=None, stride=1, padding=0, dilation=1, groups=1):
+def int8_conv_ref(xq, wq, scale, bias=None, stride=1, padding=0, dilation=1, groups=1,
+                  out_dtype=torch.float32):
     """Plain PyTorch version: F.conv2d in float64 on the int8 values, which
     is exact (every product is below 2^14 and every sum below 2^53), rounded
-    to int32, then the same dequant. `wq` is packed (out, kh, kw, in/groups)."""
+    to int32, then the same dequant in float32 and the cast to `out_dtype`.
+    `wq` is packed (out, kh, kw, in/groups)."""
     with torch.autocast(xq.device.type, enabled=False):
         acc = F.conv2d(xq.double(), wq.permute(0, 3, 1, 2).double(), None,
                        _pair(stride), _pair(padding), _pair(dilation), groups)
     y = torch.round(acc).to(torch.int32).float() * scale.view(1, -1, 1, 1)
     if bias is not None:
         y = y + bias.view(1, -1, 1, 1)
-    return y
+    return y.to(out_dtype)
 
 
 def _check(name, t, dtype, shape, device):
@@ -54,11 +58,16 @@ def _check(name, t, dtype, shape, device):
         raise ValueError("%s: on %s, expected %s" % (name, t.device, device))
 
 
-def int8_conv(xq, wq, scale, bias=None, stride=1, padding=0, dilation=1, groups=1):
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def int8_conv(xq, wq, scale, bias=None, stride=1, padding=0, dilation=1, groups=1,
+              out_dtype=torch.float32):
     """int8 conv of `xq` (N, Cin, H, W) int8 with `wq` (Cout, kh, kw,
     Cin/groups) int8; symmetric `padding`. `scale` and `bias` are float32
-    (Cout,). Returns float32 (N, Cout, Ho, Wo), channels_last on CUDA. On
-    CUDA `xq` must be channels_last and `wq` contiguous."""
+    (Cout,). Returns `out_dtype` (float32 or bf16) (N, Cout, Ho, Wo),
+    channels_last on CUDA. On CUDA `xq` must be channels_last and `wq`
+    contiguous."""
     if xq.dim() != 4 or wq.dim() != 4:
         raise ValueError("xq and wq must be 4-D, got %s and %s"
                          % (tuple(xq.shape), tuple(wq.shape)))
@@ -73,12 +82,14 @@ def int8_conv(xq, wq, scale, bias=None, stride=1, padding=0, dilation=1, groups=
     _check("scale", scale, torch.float32, (cout,), device)
     if bias is not None:
         _check("bias", bias, torch.float32, (cout,), device)
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError("out_dtype %s, expected one of %s" % (out_dtype, OUT_DTYPES))
     ho, wo = out_size(h, w, kh, kw, stride, padding, dilation)
     if ho < 1 or wo < 1:
         raise ValueError("empty output %dx%d" % (ho, wo))
 
     if device.type == "cpu":
-        return int8_conv_ref(xq, wq, scale, bias, stride, padding, dilation, groups)
+        return int8_conv_ref(xq, wq, scale, bias, stride, padding, dilation, groups, out_dtype)
     if device.type != "cuda":
         raise NotImplementedError("int8_conv: no kernel for %s" % device)
     if not xq.is_contiguous(memory_format=torch.channels_last):
@@ -88,14 +99,14 @@ def int8_conv(xq, wq, scale, bias=None, stride=1, padding=0, dilation=1, groups=
         raise ValueError("wq, scale and bias must be contiguous")
     if max(n * h * w * cin, n * ho * wo * cout, cout * kh * kw * cg) >= 2 ** 31:
         raise ValueError("int8_conv: a tensor of 2^31 elements or more")
-    y = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=device).permute(0, 3, 1, 2)
+    y = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=device).permute(0, 3, 1, 2)
     launch(xq, wq, scale, bias, y, stride, padding, dilation, groups)
     return y
 
 
 def launch(xq, wq, scale, bias, y, stride, padding, dilation, groups):
-    """One launch of the kernel into `y` on CUDA tensors that `int8_conv` has
-    checked and allocated: no checks, no allocation."""
+    """One launch of the kernel into `y` (float32 or bf16) on CUDA tensors
+    that `int8_conv` has checked and allocated: no checks, no allocation."""
     global launches
     n, cin, h, w = xq.shape
     cout, kh, kw, _ = wq.shape
@@ -105,8 +116,10 @@ def launch(xq, wq, scale, bias, y, stride, padding, dilation, groups):
         fn, xq.device, xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         n, h, w, cin, cout, kh, kw, y.shape[2], y.shape[3], sh, sw, ph, pw, dh, dw, groups,
-        torch.cuda.current_stream(xq.device).cuda_stream,
+        int(y.dtype == torch.bfloat16), torch.cuda.current_stream(xq.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError("int8_conv kernel launch failed: cudaError %d" % err)
+        raise RuntimeError("int8_conv kernel launch failed: %s" % (
+            "libcuda's tensor-map encoder is missing or refused the shape" if err == -1
+            else "cudaError %d" % err))
     launches += 1

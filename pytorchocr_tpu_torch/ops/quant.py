@@ -6,9 +6,12 @@ pytorchocr_tpu/ops/quant.py.
   * activations: per-tensor symmetric int8, scales from a calibration pass
     (running absmax, held in `AbsMax` modules: non-persistent buffers, so
     `state_dict()` and float checkpoints are unchanged);
-  * conv compute: int8 x int8 -> exact int32, dequantized in float32
-    (`ops/int8_conv.py`: the hand-written kernel on the card, its plain
-    version on the CPU).
+  * conv compute: int8 x int8 -> exact int32, dequantized in float32 and
+    written in the compute dtype (`ops/int8_conv.py`: the hand-written
+    kernel on the card, its plain version on the CPU);
+  * the quantize, dequant and residual requantize passes: one elementwise
+    pass each (`ops/requant.py`: the hand-written kernel on the card, its
+    plain version on the CPU), as XLA fuses them in the JAX package.
 
 The mode (None, "calibrate" or "int8") lives on the model: `quantized(model,
 m)` sets it on every module that takes part (those with a `qmode`
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import int8_conv as _int8_conv
+from . import requant
 
 __all__ = [
     "QTensor", "AbsMax", "QuantConv", "quantized", "quantizing", "calibrate",
@@ -98,12 +102,6 @@ def _symmetric_qparams(absmax, eps=1e-6):
     return torch.clamp_min(absmax.float(), eps) * _INV127
 
 
-def _quantize(x, scale):
-    """clip(round(x / scale), -127, 127) as int8; torch.round rounds half to
-    even, as jnp.round does. Keeps x's memory format."""
-    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
-
-
 class QTensor(NamedTuple):
     """An int8 activation and its per-tensor symmetric scale: value =
     q * scale. `q` is an NCHW int8 tensor (channels_last on CUDA), `scale`
@@ -116,24 +114,26 @@ class QTensor(NamedTuple):
 def dequant(x, dtype=torch.float32):
     """QTensor -> float tensor (identity on plain tensors)."""
     if isinstance(x, QTensor):
-        return (x.q.float() * x.scale).to(dtype)
+        return requant.dequant(x.q, x.scale, dtype)
     return x
 
 
 def qtensor_from(x, absmax):
     """Quantize a float activation into a QTensor with a calibrated absmax."""
     scale = _symmetric_qparams(absmax)
-    return QTensor(_quantize(x, scale), scale)
+    return QTensor(requant.quantize(x, scale), scale)
 
 
 def qadd_act(a, b, absmax, act=None):
-    """Residual add (+ optional activation) of two int8 or float operands in
-    float32 whatever the compute dtype, requantized with the calibrated
-    output absmax. Returns a QTensor."""
-    out = dequant(a) + dequant(b)
-    if act is not None:
-        out = act(out)
-    return qtensor_from(out, absmax)
+    """Residual add (+ optional relu, the one activation the ResNet blocks
+    take) of two int8 or float operands, requantized with the calibrated
+    output absmax in one pass. An int8 operand is dequantized to float32
+    whatever the compute dtype. Returns a QTensor."""
+    if act not in (None, F.relu, torch.relu):
+        raise ValueError("qadd_act: act must be None or relu, got %r" % (act,))
+    scale = _symmetric_qparams(absmax)
+    (qa, sa), (qb, sb) = ((x.q, x.scale) if isinstance(x, QTensor) else (x, None) for x in (a, b))
+    return QTensor(requant.add_act_quantize(qa, qb, sa, sb, scale, act is not None), scale)
 
 
 def repeat_nearest(q, scale):
@@ -198,7 +198,7 @@ class QuantConv(nn.Conv2d):
       (out, kh, kw, in/groups) int8, once per weight version (an in-place
       update, a device move or a loaded state gives a new version); then
       `int8_conv` computes float32(int32 sum) * (s_x * s_w), plus the bias,
-      and the result is cast to the compute dtype (JAX `quant.py:246-260`).
+      and writes it in the compute dtype (JAX `quant.py:246-260`).
     """
 
     def __init__(self, *args, **kwargs):
@@ -214,7 +214,8 @@ class QuantConv(nn.Conv2d):
         if self._packed is None or self._packed[0] != key:
             with torch.no_grad():
                 s_w = _symmetric_qparams(w.detach().abs().amax(dim=(1, 2, 3)))
-                wq = _quantize(w.detach(), s_w.view(-1, 1, 1, 1))
+                # per-channel scales: the plain version, once per weight version
+                wq = requant.quantize_ref(w.detach(), s_w.view(-1, 1, 1, 1))
                 wq = wq.permute(0, 2, 3, 1).contiguous()
             self._packed = (key, wq, s_w)
         return self._packed[1], self._packed[2]
@@ -230,13 +231,11 @@ class QuantConv(nn.Conv2d):
             s_x, xq = x.scale, x.q
         else:
             s_x = _symmetric_qparams(self.act_absmax.get())
-            xq = _quantize(x, s_x)
-        dtype = compute_dtype(xq)
+            xq = requant.quantize(x, s_x)
         wq, s_w = self.packed_weight()
         if xq.device.type == "cuda":
             xq = xq.contiguous(memory_format=torch.channels_last)
-        y = _int8_conv.int8_conv(
+        return _int8_conv.int8_conv(
             xq, wq, s_x * s_w, None if self.bias is None else self.bias.detach().float(),
-            self.stride, self.padding, self.dilation, self.groups,
+            self.stride, self.padding, self.dilation, self.groups, out_dtype=compute_dtype(xq),
         )
-        return y.to(dtype)

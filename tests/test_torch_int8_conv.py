@@ -5,12 +5,14 @@ On the CPU its plain version runs against what the JAX package computes,
 float32 dequant of pytorchocr_tpu/ops/quant.py:252-255: the int32 sums must
 be equal (compared as float32, exact below 2^24, which every case here
 stays under) and the float32 outputs equal to the last bit (one multiply and
-one add, each rounded once, on both sides).
+one add, each rounded once, on both sides); with `out_dtype=bf16` equal to
+the JAX result cast to bf16 (`QuantConv`'s `y.astype(dtype)`, quant.py:259).
 
 The `cuda`-marked tests hold the hand-written kernel (csrc/int8_conv.cu)
-against the plain version on the card, exactly, at those shapes and at the
-stem and layer shapes of DB-ResNet18 on 4 pages of 736x1280; they skip
-without a card."""
+against the plain version on the card, exactly, in float32 and bf16, at
+those shapes and at the DB-ResNet18 shapes of 4 pages of 736x1280 (stem,
+layers, downsamples, FPN laterals and the head), which take each of the
+kernel's load modes and tile sizes; they skip without a card."""
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ CASES = [
     ("odd H W, Cin 24", 1, 24, 9, 31, 10, 3, 1, 1, 1, 1, True),
     ("depthwise 3x3/2", 2, 8, 11, 13, 8, 3, 2, 1, 1, 8, False),
     ("groups 2", 2, 8, 10, 10, 6, 3, 1, 1, 1, 2, True),
+    ("Cin 24 3x3, Wo 100", 2, 24, 9, 100, 10, 3, 1, 1, 1, 1, True),
 ]
 
 
@@ -77,6 +80,23 @@ def test_plain_int8_conv_equals_jax(case):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_plain_int8_conv_bf16_equals_jax(case):
+    """out_dtype=bf16: the JAX package's int8 conv, dequant and bias in
+    float32, then `.astype(bfloat16)`, as QuantConv does under bf16."""
+    _, n, cin, h, w, cout, k, stride, padding, dilation, groups, bias = case
+    xq, wq, scale, b = make_case(n, cin, h, w, cout, k, groups, bias, seed=cout + h)
+    acc = jax_int8_conv(xq, wq, stride, padding, dilation, groups)
+    want = jnp.asarray(acc).astype(jnp.float32) * jnp.asarray(scale)[None, :, None, None]
+    if b is not None:
+        want = want + jnp.asarray(b)[None, :, None, None]
+    want = np.asarray(want.astype(jnp.bfloat16)).view(np.int16)
+    got = int8_conv.int8_conv(_t(xq), _t(wq), _t(scale), _t(b), stride, padding, dilation,
+                              groups, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), want)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     xq, wq, scale, _ = make_case(1, 8, 6, 6, 4, 3, 1, False, seed=0)
     x, wt, s = _t(xq), _t(wq), _t(scale)
@@ -88,36 +108,70 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         int8_conv.int8_conv(x, wt, s[:2])
     with pytest.raises(ValueError, match="empty"):
         int8_conv.int8_conv(x[:, :, :2], wt, s)
+    with pytest.raises(TypeError, match="out_dtype"):
+        int8_conv.int8_conv(x, wt, s, out_dtype=torch.float16)
 
 
-# DB-ResNet18 at 4 pages of 736x1280: the stem, a layer-1 conv, layer 4's
-# strided conv, a 1x1/2 downsample and the head's 3x3 over the fused map
+# DB-ResNet18 at 4 pages of 736x1280: the stem (its input patch), a layer-1 conv
+# (cp.async gathers, 128-row tiles, N 64), layer 2-4 convs (N 128; layers 3
+# and 4 on 64-row tiles), the 1x1/2 downsamples, the FPN laterals (A by TMA)
+# and the head's 3x3 over the fused map; the stem of 4 portrait pages
+# (1056x736: 368-pixel output rows, so 128-pixel tiles straddle two rows)
 CARD_CASES = CASES + [
     ("db stem 4x736x1280", 4, 3, 736, 1280, 64, 7, 2, 3, 1, 1, False),
+    ("db stem 4x1056x736 portrait", 4, 3, 1056, 736, 64, 7, 2, 3, 1, 1, False),
     ("db layer1 3x3 64", 4, 64, 184, 320, 64, 3, 1, 1, 1, 1, False),
+    ("db layer2 3x3 128", 4, 128, 92, 160, 128, 3, 1, 1, 1, 1, False),
+    ("db layer3 3x3 256", 4, 256, 46, 80, 256, 3, 1, 1, 1, 1, False),
     ("db layer4 3x3/2 256->512", 4, 256, 46, 80, 512, 3, 2, 1, 1, 1, False),
     ("db downsample 1x1/2 128->256", 4, 128, 92, 160, 256, 1, 2, 0, 1, 1, False),
+    ("db fpn in2 1x1 64->256", 4, 64, 184, 320, 256, 1, 1, 0, 1, 1, False),
+    ("db fpn in5 1x1 512->256", 4, 512, 23, 40, 256, 1, 1, 0, 1, 1, False),
     ("db head 3x3 256->64", 4, 256, 184, 320, 64, 3, 1, 1, 1, 1, True),
     ("Cout 40, M not a tile multiple", 1, 32, 7, 9, 40, 3, 1, 1, 1, 1, True),
+    ("1x1 Cin 16, K under a stage", 1, 16, 7, 9, 24, 1, 1, 0, 1, 1, True),
+    ("byte loads at N 128", 1, 3, 30, 40, 128, 7, 2, 3, 1, 1, True),
+    ("input patch: Cin 3, 64-pixel rows", 1, 3, 20, 256, 16, 7, 2, 3, 1, 1, True),
+    ("input patch: Cin 24 3x3", 2, 24, 9, 64, 10, 3, 1, 1, 1, 1, True),
+    ("input patch: Cin 8 dilation 2, N 128", 1, 8, 12, 128, 136, 3, 1, 2, 2, 1, False),
+    ("input patch straddling rows: Cin 3 7x7/2, Wo 75", 2, 3, 20, 150, 16, 7, 2, 3, 1, 1, True),
+    ("input patch straddling rows: Cin 8 dilation 2, Wo 130", 1, 8, 12, 130, 40, 3, 1, 2, 2, 1,
+     False),
     ("depthwise 5x5 96", 2, 96, 24, 48, 96, 5, 1, 2, 1, 96, True),
 ]
+OUT_DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
-def test_kernel_equals_plain_on_card(cuda_device, case):
+def test_kernel_equals_plain_on_card(cuda_device, case, out_dtype):
     _, n, cin, h, w, cout, k, stride, padding, dilation, groups, bias = case
     xq, wq, scale, b = make_case(n, cin, h, w, cout, k, groups, bias, seed=cout + h)
     x = _t(xq).to(cuda_device).contiguous(memory_format=torch.channels_last)
     args = (_t(wq).to(cuda_device), _t(scale).to(cuda_device),
             None if b is None else _t(b).to(cuda_device), stride, padding, dilation, groups)
     before = int8_conv.launches
-    got = int8_conv.int8_conv(x, *args)
+    got = int8_conv.int8_conv(x, *args, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert int8_conv.launches == before + 1
-    want = int8_conv.int8_conv_ref(x, *args)
-    assert got.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(got, want), float((got - want).abs().max())
+    want = int8_conv.int8_conv_ref(x, *args, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+def test_kernel_unaligned_input_on_card(cuda_device):
+    """A payload that starts off a 16-byte boundary takes the byte loads."""
+    xq, wq, scale, b = make_case(2, 32, 12, 14, 48, 3, 1, True, seed=5)
+    flat = torch.zeros(xq.size + 1, dtype=torch.int8, device=cuda_device)
+    x = flat[1:].view(2, 12, 14, 32).permute(0, 3, 1, 2)
+    x.copy_(_t(xq))
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
+    args = (_t(wq).to(cuda_device), _t(scale).to(cuda_device), _t(b).to(cuda_device), 1, 1, 1, 1)
+    for out_dtype in OUT_DTYPES:
+        assert torch.equal(int8_conv.int8_conv(x, *args, out_dtype=out_dtype),
+                           int8_conv.int8_conv_ref(x, *args, out_dtype=out_dtype))
 
 
 @pytest.mark.cuda
