@@ -573,8 +573,7 @@ def det_inputs(deter, pages):
     import torch
 
     det_imgs = np.concatenate([deter._preprocess(cv2.imread(p))[0] for p in pages])
-    x = torch.from_numpy(det_imgs).float()
-    x = ((x / 255.0 - deter.runner.mean) / deter.runner.std).permute(0, 3, 1, 2)
+    x = deter.runner.normalize(torch.from_numpy(det_imgs)).permute(0, 3, 1, 2)
     dark = np.stack([cv2.cvtColor(im, cv2.COLOR_RGB2GRAY) < 128 for im in det_imgs])
     return x, dark
 
@@ -1493,8 +1492,8 @@ def phase_requant(dev, card, ocr, pages):
 
     # the path check: the model's forward alone, as Runner._forward runs it
     runner = ocr.deter.runner
-    x = torch.from_numpy(_det_batch(ocr.deter, pages)[0]).to(dev).float()
-    x = ((x / 255.0 - runner.mean) / runner.std).permute(0, 3, 1, 2)
+    x = runner.normalize(torch.from_numpy(_det_batch(ocr.deter, pages)[0]).to(dev))
+    x = x.permute(0, 3, 1, 2)
     with torch.inference_mode(), quant.quantized(runner.model, "int8"), \
             torch.autocast("cuda", dtype=runner.dtype):
         runner.model(x)

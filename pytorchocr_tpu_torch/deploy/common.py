@@ -2,12 +2,13 @@
 
 `Runner` is the counterpart of `JitRunner`: it takes the same raw HWC image
 batches (uint8 or float, numpy), folds the normalisation into the device
-forward (/255, -mean, /std), and returns the model's outputs as device
-tensors in the JAX layouts. It holds an explicit device and a compute dtype:
-bf16 autocast on CUDA by default (as the JAX deploy builds its models in
-bf16), float32 on the CPU. `calibrate` runs the int8 PTQ calibration
-(ops/quant.py) over raw batches; after it the runner's forwards run in int8
-mode. Not ported: multi-card data parallel (A.14), AOT export (A.14).
+forward (times float32(1/255), -mean, /std: `normalize`), and returns the
+model's outputs as device tensors in the JAX layouts. It holds an explicit
+device and a compute dtype: bf16 autocast on CUDA by default (as the JAX
+deploy builds its models in bf16), float32 on the CPU. `calibrate` runs the
+int8 PTQ calibration (ops/quant.py) over raw batches; after it the runner's
+forwards run in int8 mode. Not ported: multi-card data parallel (A.14), AOT
+export (A.14).
 """
 
 import numpy as np
@@ -48,6 +49,10 @@ class Runner:
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
         self.mean = self.std = None
+        # 1/255 as a float32 multiplier, as the JAX JitRunner's eager
+        # `_normalize` computes x * scale (deploy/common.py:104-108); training
+        # divides by 255 instead, as JAX training does (trainer.py:81)
+        self.scale = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=self.device)
         if mean is not None:
             self.mean = torch.tensor(mean, dtype=torch.float32, device=self.device).view(1, 1, 1, -1)
             self.std = torch.tensor(std, dtype=torch.float32, device=self.device).view(1, 1, 1, -1)
@@ -58,11 +63,17 @@ class Runner:
         self.model.load_state_dict(state, strict=True)
         return self
 
-    def _forward(self, images):
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+    def normalize(self, x):
+        """A raw NHWC image tensor on the runner's device -> the float32
+        input the model sees: (x * float32(1/255) - mean) / std, bit for bit
+        the JAX JitRunner's eager `_normalize`."""
         x = x.to(torch.float32)
         if self.mean is not None:
-            x = (x / 255.0 - self.mean) / self.std
+            x = (x * self.scale - self.mean) / self.std
+        return x
+
+    def _forward(self, images):
+        x = self.normalize(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view: channels_last strides
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
