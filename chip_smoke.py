@@ -70,7 +70,21 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      fc made decisive on the DB slice's crops) on the CPU and float32 on the
      card: equal labels (but a crop whose |p - 0.5| lies within the
      probabilities' difference), boxes and texts as in phase 5; the bf16
-     run timed with a Cls stage.
+     run timed with a Cls stage;
+ 11. the training slice, det_r18_db_synth.yml at full width (ResNet-18, FPN
+     256, DBHead k=50, amsgrad + WarmupPolyLR) on 64 training and 8 eval
+     640x640 pages drawn with cv2: one float32 step (TF32 off, bs 2) on the
+     card against the same step in float64 on the CPU, from the same seeded
+     weights and batch (loss and terms, every gradient, the parameters after
+     the update, the BN running statistics); a checkpoint round trip (save `latest` after step 1, load
+     it into a fresh model and optimizer, step 2 bit for bit the
+     uninterrupted one, cuDNN deterministic); then 200 steps of bs 16 in
+     bf16 through tools.train.run, the entry point of `python -m
+     pytorchocr_tpu_torch.tools.train`, whose loss must fall below half its
+     start (means of the first and last 20 steps), with steps/s, samples/s,
+     the loader-wait share, and the bucketed evaluate after the last epoch,
+     the main-path run of K1 on the training-eval path (counted); the eval
+     CLI on the saved checkpoint; card busy over 4 steps by torch.profiler.
 Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
@@ -1858,6 +1872,357 @@ def stage_breakdown(deter, pages, kind, recer=None, clser=None):
     return ", ".join("%s %.1f ms" % (k, v * 1e3) for k, v in times.items())
 
 
+TRAIN_CFG = os.path.join(REPO, "configs", "det", "det_r18_db_synth.yml")
+TRAIN_PAGES, EVAL_PAGES, TRAIN_SIZE, TRAIN_BS, TRAIN_STEPS = 64, 8, 640, 16, 200
+
+
+def make_train_pages(dirname, n, seed):
+    """`n` synthetic TRAIN_SIZE-square pages of word-like text drawn with cv2
+    (no font files), and their SimpleDataSet label file: per line the page's
+    path and a json list of word boxes."""
+    import cv2
+    import numpy as np
+
+    os.makedirs(dirname, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    lines = []
+    for p in range(n):
+        img = np.full((TRAIN_SIZE, TRAIN_SIZE, 3), int(rng.randint(200, 256)), np.uint8)
+        words = []
+        y = int(rng.randint(40, 70))
+        while y < TRAIN_SIZE - 20:
+            x = int(rng.randint(10, 120))
+            scale = float(rng.uniform(0.7, 1.6))
+            thick = int(rng.randint(1, 4))
+            ink = tuple(int(v) for v in rng.randint(0, 90, 3))
+            while x < TRAIN_SIZE - 160:
+                word = "".join(rng.choice(letters, rng.randint(2, 8)))
+                (tw, th), base = cv2.getTextSize(word, cv2.FONT_HERSHEY_SIMPLEX, scale, thick)
+                cv2.putText(img, word, (x, y), cv2.FONT_HERSHEY_SIMPLEX, scale, ink, thick,
+                            cv2.LINE_AA)
+                words.append({"transcription": word, "points": [
+                    [x, y - th], [x + tw, y - th], [x + tw, y + base], [x, y + base]]})
+                x += tw + int(rng.randint(15, 50))
+            y += int(rng.randint(45, 95))
+        path = os.path.join(dirname, "page_%03d.png" % p)
+        cv2.imwrite(path, img)
+        lines.append("%s\t%s" % (path, json.dumps(words)))
+    label = os.path.join(dirname, "label.txt")
+    with open(label, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return label
+
+
+def train_argv(out, train_label, eval_label, epochs):
+    """det_r18_db_synth.yml at full width (ResNet-18, FPN 256, DBHead k=50,
+    bs 16 at 640x640, amsgrad + WarmupPolyLR, bf16 autocast), pointed at the
+    drawn pages: eval and `latest` after the last epoch only."""
+    return ["-c", TRAIN_CFG, "-o", "Global.save_model_dir=%s" % out,
+            "Global.epoch_num=%d" % epochs, "Global.eval_epoch_step=[%d,1]" % (epochs - 1),
+            "Global.save_latest_epoch_step=%d" % epochs, "Global.print_batch_step=20",
+            "Train.dataset.label_file_list=[%s]" % train_label,
+            "Eval.dataset.label_file_list=[%s]" % eval_label]
+
+
+def first_batches(config, n, bs):
+    """The first `n` batches of `bs` of the config's train loader (whole
+    epoch drained: no worker keeps drawing from the global generators)."""
+    import copy
+
+    from pytorchocr_tpu_torch.data import build_dataloader
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+
+    config = copy.deepcopy(config)
+    config["Train"]["loader"]["batch_size_per_card"] = bs
+    loader, _ = build_dataloader(config, "Train", get_logger(name="root"))
+    return list(loader)[:n]
+
+
+def train_parts(config, device, amp):
+    """A model with the trainer's seeded init, its optimizer and train step."""
+    from pytorchocr_tpu_torch.losses import build_loss
+    from pytorchocr_tpu_torch.optimizer import build_optimizer
+    from pytorchocr_tpu_torch.tools.train import build_train_model
+    from pytorchocr_tpu_torch.trainer import build_input_transform, make_train_step
+
+    model = build_train_model(config, device)
+    opt, _ = build_optimizer(config["Optimizer"], epochs=TRAIN_STEPS // (TRAIN_PAGES // TRAIN_BS),
+                             step_each_epoch=TRAIN_PAGES // TRAIN_BS,
+                             parameters=model.parameters())
+    spec = config["Global"]["_device_normalize_spec"].get("Train")
+    step = make_train_step(model, build_loss(config["Loss"]), opt,
+                           input_transform=build_input_transform(spec), amp=amp)
+    return model, opt, step
+
+
+def f64_reference_step(config, batch):
+    """The same train step on the CPU in float64 (model, input, labels and
+    loss; the DB head's sigmoids stay float32, as the module computes them):
+    the reference the card's float32 step is held to. PyTorch's float32 BN
+    statistics on the CPU drift ~1e-4 relative from float64 over a 640x640
+    batch, 100x the card's float32, so the CPU's float32 is no reference."""
+    import torch
+
+    from pytorchocr_tpu_torch.losses import build_loss
+    from pytorchocr_tpu_torch.trainer import batch_to_device, build_input_transform
+
+    cpu = torch.device("cpu")
+    model, opt, _ = train_parts(config, cpu, amp=False)
+    model.double().train()
+    b = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+              for x in batch_to_device(batch, cpu))
+    x = build_input_transform(config["Global"]["_device_normalize_spec"]["Train"])(b[0])
+    preds = model(x.double().permute(0, 3, 1, 2), data=b)
+    losses = build_loss(config["Loss"])({"maps": preds["maps"].double()}, b)
+    opt.zero_grad(set_to_none=True)
+    losses["loss"].backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    opt.step()
+    return model, opt, {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def compare_f32_step(config, dev, batch, card):
+    """One float32 train step (TF32 off) through the trainer's step on the
+    card against the float64 reference on the CPU (f64_reference_step), from
+    the same seeded weights and batch: the loss and its terms (rtol 1e-4),
+    every gradient (relative L2 <= 2e-2; the deconv1 biases, which feed a
+    train-mode BN and so have gradient 0 up to rounding, by a norm under 1e-4
+    of their weight's gradient norm), the parameters after the update (within
+    1e-2 lr, but within 2 lr where the gradient is within rounding of 0) and
+    the BN running statistics (|diff| <= 1e-3 (|v| + 1e-2))."""
+    import torch
+
+    from pytorchocr_tpu_torch.trainer import batch_to_device
+
+    m_ref, opt, l_ref, g_ref = f64_reference_step(config, batch)
+    cpu_model, _, cpu_step = train_parts(config, torch.device("cpu"), amp=False)
+    l_cpu = float(cpu_step(batch_to_device(batch, torch.device("cpu")))["loss"])
+    g_cpu = max(float((p.grad.double() - g_ref[k]).norm() / g_ref[k].norm())
+                for k, p in cpu_model.named_parameters() if not k.endswith("deconv1.bias"))
+    del cpu_model, cpu_step
+    model, _, step = train_parts(config, dev, amp=False)
+    p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
+    l_card = {k: float(v) for k, v in step(batch_to_device(batch, dev)).items()}
+    g_card = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    for k in l_ref:
+        check(abs(l_card[k] - l_ref[k]) <= 1e-4 * abs(l_ref[k]),
+              "train f32 step: %s %.7g on the card against %.7g (CPU float64)"
+              % (k, l_card[k], l_ref[k]))
+    worst = (0.0, "")
+    for k, g in g_ref.items():
+        if k.endswith("deconv1.bias"):
+            scale = 1e-4 * float(g_ref[k[:-4] + "weight"].norm())
+            check(float(g.norm()) < scale and float(g_card[k].norm()) < scale,
+                  "train f32 step: %s has a gradient" % k)
+            continue
+        worst = max(worst, (float((g_card[k] - g).norm() / g.norm()), k))
+    check(worst[0] <= 2e-2, "train f32 step: gradient %s off by %.3g (relative L2)"
+          % worst[::-1])
+    lr = float(opt.lr_schedule(0))
+    ref_sd = m_ref.state_dict()
+    card_sd = {k: v.double().cpu() for k, v in model.state_dict().items()}
+    excused = total = 0
+    for k in g_ref:
+        g, gd = g_ref[k], g_card[k]
+        diff = (card_sd[k] - ref_sd[k]).abs()
+        near0 = (g.abs() <= 4 * (gd - g).abs()) | (g.abs() < 1e-6)  # within rounding of 0
+        check(bool((diff[near0] <= 2 * lr).all()), "train f32 step: %s moved > 2 lr" % k)
+        far = diff[~near0]
+        check(bool((far <= 1e-2 * lr + 1e-6 * p0[k].abs()[~near0]).all()),
+              "train f32 step: %s differs after the update (max %.3g)"
+              % (k, float(far.max()) if far.numel() else 0.0))
+        excused += int(near0.sum())
+        total += g.numel()
+    bn_worst = 0.0  # |diff| / (|v| + 1e-2): relative, absolute near 0
+    for k, v in ref_sd.items():
+        if "running" in k:
+            bn_worst = max(bn_worst, float(((card_sd[k] - v).abs() / (v.abs() + 1e-2)).max()))
+    check(bn_worst <= 1e-3, "train f32 step: BN running statistics off by %.3g" % bn_worst)
+    say("train-f32", "one float32 step (bs 2, %dx%d, TF32 off) through the trainer's step on %s "
+        "against the same step in float64 on the CPU: loss %.6f against %.6f (rtol 1e-4, each "
+        "term too), gradients worst %.2e relative L2 (%s), parameters within 1e-2 lr but %d of "
+        "%d elements with a gradient within rounding of 0 (within 2 lr = %.2e), BN running "
+        "statistics worst %.2e of |v| + 1e-2"
+        % (TRAIN_SIZE, TRAIN_SIZE, card, l_card["loss"], l_ref["loss"], worst[0], worst[1],
+           excused, total, 2 * lr, bn_worst))
+    say("train-f32", "the CPU's own float32 step against the same float64 reference (a report): "
+        "loss %.6f, gradients worst %.2e relative L2; the card's float32: %.6f, %.2e"
+        % (l_cpu, g_cpu, l_card["loss"], worst[0]))
+
+
+def loader_breakdown(config, label, n=16):
+    """Host ms per sample of each op of the config's train chain, one thread,
+    over the first `n` pages of `label` (decode included: it is cached after
+    the first epoch), and the polygons a sample keeps after the crop."""
+    import numpy as np
+
+    from pytorchocr_tpu_torch.data import create_operators
+
+    ops = create_operators(config["Train"]["dataset"]["transforms"], config["Global"])
+    times = {type(op).__name__: 0.0 for op in ops}
+    polys = []
+    lines = open(label).read().splitlines()[:n]
+    for line in lines:
+        path, text = line.split("\t")
+        with open(path, "rb") as f:
+            data = {"img_path": path, "label": text, "image": f.read()}
+        for op in ops:
+            t0 = time.perf_counter()
+            data = op(data)
+            times[type(op).__name__] += time.perf_counter() - t0
+            if type(op).__name__ in ("FusedDetAugCrop", "EastRandomCropData"):
+                polys.append(len(data["polys"]))
+    return ", ".join("%s %.2f" % (k, 1e3 * v / len(lines)) for k, v in times.items()), \
+        float(np.mean(polys))
+
+
+def checkpoint_round_trip(config, dev, batches, tmp):
+    """Save `latest` after step 1, load it into a fresh model and optimizer,
+    take step 2: bit for bit the uninterrupted run's step 2 (float32, cuDNN
+    deterministic)."""
+    import copy
+
+    import torch
+
+    from pytorchocr_tpu_torch.trainer import batch_to_device
+    from pytorchocr_tpu_torch.utils.save_load import load_model, save_model
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        b1, b2 = (batch_to_device(b, dev) for b in batches[:2])
+        model, opt, step = train_parts(config, dev, amp=False)
+        step(b1)
+        out = os.path.join(tmp, "ckpt")
+        save_model(model, opt, {"start_epoch": 0, "global_step": 1, "best_model": {}}, out,
+                   prefix="latest")
+        step(b2)
+        fresh, fresh_opt, fresh_step = train_parts(config, dev, amp=False)
+        cfg = copy.deepcopy(config)
+        cfg["Global"]["checkpoints"] = os.path.join(out, "latest")
+        check(load_model(cfg, fresh, fresh_opt)["global_step"] == 1, "checkpoint global_state")
+        fresh_step(b2)
+        torch.cuda.synchronize()
+        worst, n = 0.0, 0
+        for (k, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+            n += 1
+            if not torch.equal(a, b):
+                worst = max(worst, float((a.double() - b.double()).abs().max()))
+        for p, q in zip(model.parameters(), fresh.parameters()):
+            for key in ("mu", "nu", "nu_max"):
+                if not torch.equal(opt.state[p][key], fresh_opt.state[q][key]):
+                    worst = max(worst, float((opt.state[p][key] - fresh_opt.state[q][key])
+                                             .abs().max()))
+        check(worst == 0.0, "checkpoint round trip: resumed step differs by %.3g" % worst)
+        say("train-ckpt", "save latest after step 1, load into a fresh model and optimizer, "
+            "step 2: equal bit for bit to the uninterrupted step 2 (%d state tensors and the "
+            "amsgrad moments; float32, cuDNN deterministic)" % n)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def phase_train(dev, card, tmp):
+    """The training slice (phase 11). Returns K1's launches on the
+    training-eval path."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.ops import cc_label, runmax
+    from pytorchocr_tpu_torch.tools import eval as eval_cli
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.tools import train as train_cli
+    from pytorchocr_tpu_torch.trainer import batch_to_device
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+
+    from pytorchocr_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    check(native.native_available(), "the native geometry library (g++) did not build: "
+          "MakeBorderMap would take its numpy path")
+    logger = get_logger(name="root")  # the CLI's logger: its console at WARNING here
+    for h in logger.handlers:
+        h.setLevel(logging.WARNING)
+    train_label = make_train_pages(os.path.join(tmp, "train"), TRAIN_PAGES, SEED + 11)
+    eval_label = make_train_pages(os.path.join(tmp, "eval"), EVAL_PAGES, SEED + 12)
+    epochs = TRAIN_STEPS // (TRAIN_PAGES // TRAIN_BS)
+    out = os.path.join(tmp, "train_out")
+    argv = train_argv(out, train_label, eval_label, epochs)
+    config = program.preprocess(is_train=True, argv=argv)[0]
+    ops_ms, polys = loader_breakdown(config, train_label)
+    say("train-loader", "host ms per sample, one thread: %s (%.1f polygons a sample after the "
+        "crop; the native border map)" % (ops_ms, polys))
+    batches = first_batches(config, 2, 2)
+    compare_f32_step(config, dev, batches[0], card)
+    checkpoint_round_trip(config, dev, batches, tmp)
+
+    # the entry point, as `python -m pytorchocr_tpu_torch.tools.train` runs it
+    runmax.launches = 0
+    cc_label.alternations = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = train_cli.run(argv)
+    run_s = time.perf_counter() - t0
+    k1 = runmax.launches
+    losses = report["losses"]
+    check(report["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+          "train: %d steps, not %d" % (report["steps"], TRAIN_STEPS))
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(last < 0.5 * first, "train: the loss fell from %.4f to %.4f only" % (first, last))
+    check(k1 > 0, "train: the evaluate after training launched no run-max kernel")
+    best = report["best"]
+    say("train", "det_r18_db_synth.yml through tools.train.run: %d steps of bs %d at %dx%d, bf16 "
+        "autocast, on %d drawn pages; mean loss of the first 20 steps %.4f, of the last 20 %.4f; "
+        "loss every 20 steps: %s" % (
+            report["steps"], TRAIN_BS, TRAIN_SIZE, TRAIN_SIZE, TRAIN_PAGES, first, last,
+            ", ".join("%.3f" % v for v in losses[::20])))
+    say("train", "%.3f steps/s, %.1f samples/s over the train iterations (%.1f s of %.1f s in "
+        "the call); loader wait %.1f%% of it; %s"
+        % (report["steps"] / report["wall_s"], report["samples"] / report["wall_s"],
+           report["wall_s"], run_s, 100.0 * report["reader_s"] / report["wall_s"], card))
+    say("train-eval", "bucketed evaluate after the last epoch on %d pages: runmax.launches %d "
+        "(alternations %d), hmean %.4f, precision %.4f, recall %.4f, %.2f pages/s (its first "
+        "call) on %s" % (EVAL_PAGES, k1, cc_label.alternations, best["hmean"],
+                         best["precision"], best["recall"], best["fps"], card))
+
+    eval_argv = argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")]
+    eval_cli.run(eval_argv)
+    metric = eval_cli.run(eval_argv)  # warm: cuDNN has seen the shapes
+    say("train-eval", "tools.eval.run on the latest checkpoint, second call: hmean %.4f (the "
+        "train run's %.4f), %.2f pages/s on %s" % (metric["hmean"], best["hmean"], metric["fps"],
+                                                    card))
+
+    # card busy over a few steps of the trainer's loop: loader, copy, step
+    model, opt, step = train_parts(config, dev, amp=True)
+    from pytorchocr_tpu_torch.data import build_dataloader
+
+    loader, _ = build_dataloader(config, "Train", logger)
+
+    def forever():
+        for epoch in range(1 << 20):
+            loader.set_epoch(epoch)
+            yield from loader
+
+    it = forever()
+
+    def steps(n=4):
+        for _ in range(n):
+            step(batch_to_device(next(it), dev))
+        torch.cuda.synchronize()
+
+    steps(1)
+    t0 = time.perf_counter()
+    steps()
+    call_s = time.perf_counter() - t0
+    say("train", "profiler, 4 train steps with their loader waits: %s on %s"
+        % (device_time(steps, call_s), card))
+    it.close()
+    say("train", "phase 11 took %.1f s" % (time.perf_counter() - t_phase))
+    return k1
+
+
 def forbidden_modules():
     """Modules of JAX, flax or the JAX package that this process loaded: the
     port and this script import none of them."""
@@ -1901,22 +2266,26 @@ def main():
         rq = phase_requant(dev, card, ocr_q8, pages)
         del ocr_q8
         phase_cls(dev, card, tmp, pages, db)
+        train_k1 = phase_train(dev, card, tmp)
     bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
-    say("done", "main-path launches: K1 %d (DB %d, PSE %d, PAN %d, int8 DB %d), K2 %d (PSE), "
-        "int8_conv %d and requant %d (int8 DB); all phases %.1f s"
-        % (db_k1 + pse_k1 + pan_k1 + q8_k1, db_k1, pse_k1, pan_k1, q8_k1, pse_k2, q8_conv, q8_rq,
-           time.perf_counter() - t0))
+    k1_paths = {"DB": db_k1, "PSE": pse_k1, "PAN": pan_k1, "int8 DB": q8_k1,
+                "train-eval": train_k1}
+    say("done", "main-path launches: K1 %d (%s), K2 %d (PSE), int8_conv %d and requant %d "
+        "(int8 DB); all phases %.1f s"
+        % (sum(k1_paths.values()), ", ".join("%s %d" % kv for kv in k1_paths.items()), pse_k2,
+           q8_conv, q8_rq, time.perf_counter() - t0))
 
     kernels = []
-    for name, source, replaces, launches, row in (
-        ("segmented_runmax", "runmax.cu", 195, db_k1 + pse_k1 + pan_k1 + q8_k1, k1),
-        ("propagate_rounds", "propagate.cu", 41, pse_k2, k2),
+    for name, source, replaces, launches, row, by_path in (
+        ("segmented_runmax", "runmax.cu", 195, sum(k1_paths.values()), k1, k1_paths),
+        ("propagate_rounds", "propagate.cu", 41, pse_k2, k2, {"PSE": pse_k2}),
     ):
         kernels.append(dict(
             name=name, route="cuda", source="pytorchocr_tpu_torch/csrc/" + source,
             replaces="pytorchocr_tpu/ops/pallas_propagate.py:%d" % replaces,
-            launches=launches, max_abs_err=row["max_abs_err"], ms=row["device_ms"],
+            launches=launches, launches_by_path=by_path, max_abs_err=row["max_abs_err"],
+            ms=row["device_ms"],
             device_ms=row["device_ms"], wrapper_ms=row["wrapper_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
             library_note=NO_LIBRARY[name], timing="torch.profiler's mean card duration of a "

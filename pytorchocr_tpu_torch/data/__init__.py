@@ -1,62 +1,59 @@
-"""Eval-time preprocessing ops — the port's copy of the registry contract of
-pytorchocr_tpu/data/imaug/__init__.py:47-72 (`transform`, `create_operators`),
-so that the port imports nothing of the JAX package.
+"""Data layer — the port's copy of pytorchocr_tpu/data/__init__.py
+(`build_dataloader`, :27) and its registry (`data/imaug/__init__.py`).
 
-Only the ops that the deploy entry points run are ported: after
-`Deter`/`Recer`/`Clser` drop DecodeImage, the label encoders, ToTensor and
-Normalize, the det configs keep DetResizeForTest and KeepKeys, the rec config
-RecResizeImg and KeepKeys, the cls config ClsResizeImg and KeepKeys
-(`imaug.py`). Any other op of the JAX registry
-raises NotImplementedError naming the ROADMAP.md item that ports it.
+The per-rank shard comes from torch.distributed when a process group is
+initialised (the JAX package asks jax.process_index/count, :18-24); the port
+trains on one card, so it is (0, 1) until multi-GPU training (ROADMAP.md
+A.8). Only SimpleDataSet is ported; PubTabDataSet waits for A.13.
 """
 
-from .imaug import ClsResizeImg, DetResizeForTest, KeepKeys, RecResizeImg
+import copy
 
-OPS = {"DetResizeForTest": DetResizeForTest, "KeepKeys": KeepKeys,
-       "RecResizeImg": RecResizeImg, "ClsResizeImg": ClsResizeImg}
+from .imaug import create_operators, transform
+from .loader import OCRDataLoader, default_collate
+from .simple_dataset import SimpleDataSet
 
-_LATER = dict(
-    {name: "A.7" for name in (
-        "DecodeImage", "Normalize", "NormalizeImage", "Resize", "ToCHWImage", "ToTensor",
-        "AttnLabelEncode", "ClsLabelEncode", "CTCLabelEncode", "DetLabelEncode", "RecAug",
-        "RandAugment", "IaaAugment", "FusedDetAugCrop", "EastRandomCropData",
-        "RandomCropImgMask", "MakeShrinkMap", "MakeBorderMap", "MakePseGt", "MakePanGt",
-        "CopyPaste", "ColorJitter",
-    )},
-    RecResizeImgForTest="A.6", TableLabelEncode="A.13",
-    TableBoxEncode="A.13", ResizeTableImage="A.13", PaddingTableImage="A.13",
-)
+__all__ = ["build_dataloader", "create_operators", "default_collate", "OCRDataLoader",
+           "SimpleDataSet", "transform"]
 
 
-def transform(data, ops=None):
-    """Run the op chain over a data dict; None aborts the sample. From
-    data/imaug/__init__.py:47."""
-    for op in ops or []:
-        data = op(data)
-        if data is None:
-            return None
-    return data
+def _process_info():
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
-def create_operators(op_param_list, global_config=None):
-    """Build operators from the config list of {OpName: {params}} dicts, the
-    `Global` section merged into every op's kwargs. From
-    data/imaug/__init__.py:58."""
-    if not isinstance(op_param_list, list):
-        raise TypeError("operator config should be a list")
-    ops = []
-    for operator in op_param_list:
-        if not (isinstance(operator, dict) and len(operator) == 1):
-            raise ValueError("yaml format error in transforms: %s" % operator)
-        op_name = list(operator)[0]
-        if op_name not in OPS:
-            if op_name in _LATER:
-                raise NotImplementedError("data op %s is not ported yet (ROADMAP.md %s)"
-                                          % (op_name, _LATER[op_name]))
-            raise NotImplementedError("data op %s: unknown; the port supports %s"
-                                      % (op_name, list(OPS)))
-        param = {} if operator[op_name] is None else dict(operator[op_name])
-        if global_config is not None:
-            param.update(global_config)
-        ops.append(OPS[op_name](**param))
-    return ops
+def build_dataloader(config, mode, logger, seed=None):
+    """(loader, loader): the JAX contract, whose second item carries
+    `set_epoch`. From data/__init__.py:27."""
+    config = copy.deepcopy(config)
+    if seed is None:
+        # every rank must agree on the dataset order: default to the run seed
+        seed = config["Global"].get("seed", 2022)
+    module_name = config[mode]["dataset"]["name"]
+    if module_name == "PubTabDataSet":
+        raise NotImplementedError("PubTabDataSet is not ported yet (ROADMAP.md A.13)")
+    if module_name != "SimpleDataSet":
+        raise ValueError("DataSet only support ['SimpleDataSet', 'PubTabDataSet']")
+    if mode not in ("Train", "Eval", "Test"):
+        raise ValueError("Mode should be Train, Eval or Test.")
+
+    dataset = SimpleDataSet(config, mode, logger, seed)
+    loader_config = config[mode]["loader"]
+    shard_index, num_shards = 0, 1
+    if mode == "Train" and config["Global"].get("distributed", False):
+        shard_index, num_shards = _process_info()
+    data_loader = OCRDataLoader(
+        dataset=dataset,
+        batch_size=loader_config["batch_size_per_card"],
+        shuffle=loader_config["shuffle"] if mode == "Train" else False,
+        drop_last=loader_config.get("drop_last", False),
+        num_workers=loader_config["num_workers"],
+        seed=seed,
+        shard_index=shard_index,
+        num_shards=num_shards,
+        worker_mode=loader_config.get("worker_mode", "thread"),
+    )
+    return data_loader, data_loader

@@ -1,13 +1,89 @@
-"""The eval ops the deploy entry points run — the port's copy of
-DetResizeForTest and KeepKeys (pytorchocr_tpu/data/imaug/operators.py:106,140)
-and ClsResizeImg, RecResizeImg with resize_norm_img (rec_img_aug.py:39,48,130).
-Host-side numpy and cv2; images stay HWC, as in the JAX package.
-"""
+"""Core image operators — the port's copy of DecodeImage, ToTensor, Normalize,
+NormalizeImage, KeepKeys and DetResizeForTest
+(pytorchocr_tpu/data/imaug/operators.py:16,43,61,77,106,140). Host-side
+numpy and cv2; images stay HWC, as in the JAX package: ToTensor scales to
+[0, 1] float32 HWC and Normalize works on the last axis.
 
-import math
+ToTensor divides by 255 as the JAX host op and the JAX training transform do
+(operators.py:55, trainer.py:81); only the deploy `Runner` multiplies by
+float32(1/255), as the JAX JitRunner does (deploy/common.py:104-108).
+"""
 
 import cv2
 import numpy as np
+
+
+class DecodeImage:
+    """bytes -> cv2 decode -> RGB / GRAY. From operators.py:16."""
+
+    def __init__(self, img_mode="RGB", channel_first=False, **kwargs):
+        self.img_mode = img_mode
+        self.channel_first = channel_first
+
+    def __call__(self, data):
+        img = data["image"]
+        if not (isinstance(img, bytes) and len(img) > 0):
+            raise ValueError("invalid input 'img' in DecodeImage")
+        img = cv2.imdecode(np.frombuffer(img, dtype="uint8"), cv2.IMREAD_COLOR)
+        if img is None:
+            return None
+        if img.shape[2] != 3:
+            raise ValueError("invalid shape of image[%s]" % (img.shape,))
+        if self.img_mode == "GRAY":
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)  # H x W
+        elif self.img_mode == "RGB":
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        if self.channel_first:
+            img = img.transpose((2, 0, 1))
+        data["image"] = img
+        return data
+
+
+class ToTensor:
+    """HWC uint8 [0, 255] -> HWC float32 [0, 1]. From operators.py:43."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, data):
+        img = data["image"]
+        if img.ndim == 2:
+            img = img[:, :, None]
+        data["image"] = img.astype(np.float32) / 255.0
+        return data
+
+
+class Normalize:
+    """(x - mean) / std per channel on HWC float images. From operators.py:61."""
+
+    def __init__(self, mean, std, **kwargs):
+        self.mean = np.array(mean, dtype=np.float32).reshape(1, 1, -1)
+        self.std = np.array(std, dtype=np.float32).reshape(1, 1, -1)
+
+    def __call__(self, data):
+        img = data["image"]
+        if img.ndim == 2:
+            img = img[:, :, None]
+        data["image"] = (img.astype(np.float32) - self.mean) / self.std
+        return data
+
+
+class NormalizeImage:
+    """Scale, then (x - mean) / std. From operators.py:77."""
+
+    def __init__(self, scale=1.0 / 255.0, mean=None, std=None, order="hwc", **kwargs):
+        self.scale = eval(scale) if isinstance(scale, str) else scale
+        mean = mean if mean is not None else [0.485, 0.456, 0.406]
+        std = std if std is not None else [0.229, 0.224, 0.225]
+        self.mean = np.array(mean, dtype=np.float32).reshape(1, 1, -1)
+        self.std = np.array(std, dtype=np.float32).reshape(1, 1, -1)
+
+    def __call__(self, data):
+        img = data["image"]
+        if img.ndim == 2:
+            img = img[:, :, None]
+        data["image"] = (img.astype(np.float32) * self.scale - self.mean) / self.std
+        return data
 
 
 class KeepKeys:
@@ -96,56 +172,3 @@ class DetResizeForTest:
         ratio_h = resize_h / float(h)
         ratio_w = resize_w / float(w)
         return img, (ratio_h, ratio_w)
-
-
-class ClsResizeImg:
-    """From rec_img_aug.py:39."""
-
-    def __init__(self, image_shape, **kwargs):
-        self.image_shape = image_shape
-
-    def __call__(self, data):
-        data["image"] = resize_norm_img(data["image"], self.image_shape)
-        return data
-
-
-class RecResizeImg:
-    """From rec_img_aug.py:48."""
-
-    def __init__(self, image_shape, padding=True, **kwargs):
-        self.image_shape = image_shape
-        self.padding = padding
-
-    def __call__(self, data):
-        data["image"] = resize_norm_img(
-            data["image"], self.image_shape, resized_w=None, padding=self.padding
-        )
-        return data
-
-
-def resize_norm_img(img, image_shape, resized_w=None, padding=True):
-    """Aspect-preserving height resize + right-pad, /255 - 0.5 / 0.5
-    normalisation. Returns HWC float32. From rec_img_aug.py:130."""
-    imgC, imgH, imgW = image_shape
-    h, w = img.shape[:2]
-    if not padding:
-        resized_image = cv2.resize(img, (imgW, imgH))
-        resized_w = imgW
-    elif resized_w is not None:
-        resized_image = cv2.resize(img, (resized_w, imgH))
-    else:
-        ratio = w / float(h)
-        if math.ceil(imgH * ratio) > imgW:
-            resized_w = imgW
-        else:
-            resized_w = int(math.ceil(imgH * ratio))
-        resized_image = cv2.resize(img, (resized_w, imgH))
-    resized_image = resized_image.astype("float32")
-    if resized_image.ndim == 2:  # gray input -> H W 1
-        resized_image = resized_image[:, :, np.newaxis]
-    resized_image = resized_image / 255.0
-    resized_image -= 0.5
-    resized_image /= 0.5
-    padding_im = np.zeros((imgH, imgW, imgC), dtype=np.float32)
-    padding_im[:, 0:resized_w, :] = resized_image[:, :, :imgC]
-    return padding_im

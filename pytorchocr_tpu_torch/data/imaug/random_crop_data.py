@@ -1,0 +1,140 @@
+"""Text-avoiding random crops — the port's copy of
+pytorchocr_tpu/data/imaug/random_crop_data.py:1-165 (crop_area,
+is_poly_outside_rect, EastRandomCropData). The crop draws from np.random in
+the JAX op's order, so a seeded sample equals the JAX one.
+"""
+
+import cv2
+import numpy as np
+
+
+def is_poly_outside_rect(poly, x, y, w, h):
+    poly = np.array(poly)
+    if poly[:, 0].max() < x or poly[:, 0].min() > x + w:
+        return True
+    if poly[:, 1].max() < y or poly[:, 1].min() > y + h:
+        return True
+    return False
+
+
+def split_regions(axis):
+    regions = []
+    min_axis = 0
+    for i in range(1, axis.shape[0]):
+        if axis[i] != axis[i - 1] + 1:
+            regions.append(axis[min_axis:i])
+            min_axis = i
+    return regions
+
+
+def random_select(axis, max_size):
+    xx = np.random.choice(axis, size=2)
+    xmin = np.clip(np.min(xx), 0, max_size - 1)
+    xmax = np.clip(np.max(xx), 0, max_size - 1)
+    return xmin, xmax
+
+
+def region_wise_random_select(regions, max_size):
+    selected_index = list(np.random.choice(len(regions), 2))
+    selected_values = []
+    for index in selected_index:
+        axis = regions[index]
+        selected_values.append(int(np.random.choice(axis)))
+    return min(selected_values), max(selected_values)
+
+
+def crop_area(im, text_polys, min_crop_side_ratio, max_tries):
+    """Pick a crop window whose borders avoid cutting through text."""
+    h, w = im.shape[:2]
+    h_array = np.zeros(h, dtype=np.int32)
+    w_array = np.zeros(w, dtype=np.int32)
+    for points in text_polys:
+        points = np.round(points, decimals=0).astype(np.int32)
+        w_array[np.min(points[:, 0]) : np.max(points[:, 0])] = 1
+        h_array[np.min(points[:, 1]) : np.max(points[:, 1])] = 1
+    h_axis = np.where(h_array == 0)[0]
+    w_axis = np.where(w_array == 0)[0]
+    if len(h_axis) == 0 or len(w_axis) == 0:
+        return 0, 0, w, h
+
+    h_regions = split_regions(h_axis)
+    w_regions = split_regions(w_axis)
+
+    for _ in range(max_tries):
+        if len(w_regions) > 1:
+            xmin, xmax = region_wise_random_select(w_regions, w)
+        else:
+            xmin, xmax = random_select(w_axis, w)
+        if len(h_regions) > 1:
+            ymin, ymax = region_wise_random_select(h_regions, h)
+        else:
+            ymin, ymax = random_select(h_axis, h)
+
+        if (
+            xmax - xmin < min_crop_side_ratio * w
+            or ymax - ymin < min_crop_side_ratio * h
+        ):
+            continue
+        for poly in text_polys:
+            if not is_poly_outside_rect(poly, xmin, ymin, xmax - xmin, ymax - ymin):
+                return xmin, ymin, xmax - xmin, ymax - ymin
+    return 0, 0, w, h
+
+
+class EastRandomCropData:
+    """Crop to `size` avoiding text, keep-ratio pad. From random_crop_data.py:108."""
+
+    def __init__(
+        self,
+        size=(640, 640),
+        max_tries=10,
+        min_crop_side_ratio=0.1,
+        keep_ratio=True,
+        **kwargs
+    ):
+        self.size = size
+        self.max_tries = max_tries
+        self.min_crop_side_ratio = min_crop_side_ratio
+        self.keep_ratio = keep_ratio
+
+    def __call__(self, data):
+        img = data["image"]
+        text_polys = data["polys"]
+        ignore_tags = data["ignore_tags"]
+        texts = data["texts"]
+        all_care_polys = [
+            text_polys[i] for i, tag in enumerate(ignore_tags) if not tag
+        ]
+        crop_x, crop_y, crop_w, crop_h = crop_area(
+            img, all_care_polys, self.min_crop_side_ratio, self.max_tries
+        )
+        scale_w = self.size[0] / crop_w
+        scale_h = self.size[1] / crop_h
+        scale = min(scale_w, scale_h)
+        h = int(crop_h * scale)
+        w = int(crop_w * scale)
+        if self.keep_ratio:
+            padimg = np.zeros((self.size[1], self.size[0], img.shape[2]), img.dtype)
+            padimg[:h, :w] = cv2.resize(
+                img[crop_y : crop_y + crop_h, crop_x : crop_x + crop_w], (w, h)
+            )
+            img = padimg
+        else:
+            img = cv2.resize(
+                img[crop_y : crop_y + crop_h, crop_x : crop_x + crop_w],
+                tuple(self.size),
+            )
+        text_polys_crop = []
+        ignore_tags_crop = []
+        texts_crop = []
+        for poly, text, tag in zip(text_polys, texts, ignore_tags):
+            poly = ((np.array(poly) - (crop_x, crop_y)) * scale).tolist()
+            if not is_poly_outside_rect(poly, 0, 0, w, h):
+                text_polys_crop.append(poly)
+                ignore_tags_crop.append(tag)
+                texts_crop.append(text)
+        data["image"] = img
+        data["polys"] = np.array(text_polys_crop)
+        data["ignore_tags"] = ignore_tags_crop
+        data["texts"] = texts_crop
+        return data

@@ -4,7 +4,7 @@ Two conv + 2x deconv towers producing full-resolution probability and
 threshold maps; the train output adds the differentiable binarization
 1/(1+exp(-k(P-T))). Input NCHW; the output keeps the JAX layout, NHWC:
 {"maps": (N, H, W, 1)} at eval, {"maps": (N, H, W, 3)} in training mode
-(plain forward; the DB loss waits for ROADMAP.md A.7).
+(the DB loss reads it: losses/det_db_loss.py).
 
 The deconvs are torch ConvTranspose2d(2, stride 2). flax's ConvTranspose
 applies the spatially flipped kernel, so the weight bridge flips it
@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import quant
-from ..common import ConvBNAct
+from ..common import BatchNorm2d, ConvBNAct
 
 __all__ = ["DBHead"]
 
@@ -32,7 +32,7 @@ class _Tower(nn.Module):
         c = in_channels // 4
         self.conv1 = ConvBNAct(in_channels, c, 3, 1, emit_q=True)
         self.deconv1 = nn.ConvTranspose2d(c, c, 2, 2)
-        self.bn2 = nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+        self.bn2 = BatchNorm2d(c, eps=1e-5, momentum=0.1)
         self.deconv2 = nn.ConvTranspose2d(c, 1, 2, 2)
         self.qmode = None
         self.mid_absmax = quant.AbsMax()

@@ -1,14 +1,16 @@
-"""Seeded weights for runs without a trained checkpoint.
+"""Seeded weights for runs without a trained checkpoint, and the trainer's
+initialisation.
 
 `seeded_init_` draws a model's weights from a torch.Generator with the JAX
-package's initialisers. Untrained weights map a page to noise and a near
+package's initialisers; tools/train.py starts every training from it
+(seeded by Global.seed). Untrained weights map a page to noise and a near
 uniform softmax, so `text_like_db_head_`, `text_like_pse_head_`,
 `text_like_pan_head_`, `decisive_ctc_head_` and `decisive_cls_head_` reshape
 the last layers of the detection, CTC and direction-classifier heads on the
 run's own pages: the detection postprocesses then find text-like
 components, the CTC collapse reads decided characters and the classifier
-decides most crops far from p = 0.5. Used by chip_smoke.py and the slice test; no serving path
-calls them.
+decides most crops far from p = 0.5. Used by chip_smoke.py and the slice
+test; no serving path calls them.
 """
 
 import math

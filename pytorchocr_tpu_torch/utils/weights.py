@@ -159,3 +159,28 @@ def flax_quant_to_torch(model, quant_vars):
         state[".".join(path)] = torch.tensor(np.asarray(leaf, np.float32).reshape(()))
     load_absmax(model, state)
     return state
+
+
+def load_optax_adam_state(optimizer, model, opt_state, batch_stats):
+    """Carry an optax Adam/amsgrad state into `optimizer` (an
+    optimizer.OptaxAdam over `model`'s parameters) in place: `opt_state` is
+    {"count": int, "mu": tree, "nu": tree[, "nu_max": tree]} of numpy leaves
+    in the flax params layout (the ScaleByAmsgradState fields); each tree
+    goes through the param bridge, so a conv's moments land in its weight's
+    layout. `batch_stats` only completes the bridge's BN entries."""
+    named = dict(model.named_parameters())
+    moments = {}
+    for key in ("mu", "nu", "nu_max"):
+        if key in opt_state:
+            sd = flax_to_state_dict(model, {"params": opt_state[key],
+                                            "batch_stats": batch_stats})
+            moments[key] = {name: sd[name] for name in named}
+    for group in optimizer.param_groups:
+        group["count"] = int(opt_state["count"])
+    by_param = {p: name for name, p in named.items()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = by_param[p]
+            optimizer.state[p] = {k: torch.empty_like(p).copy_(v[name])
+                                  for k, v in moments.items()}
+    return optimizer

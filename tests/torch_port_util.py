@@ -144,3 +144,45 @@ def rect_hmean(got, want, min_iou=0.5):
                 matched += 1
     total = sum(map(len, got)) + sum(map(len, want))
     return 2.0 * matched / total if total else 1.0
+
+
+def tiny_db_config(path, train_label, eval_label, save_dir, size=64, fpn=32, batch=2,
+                   base="configs/det/det_r18_db_synth.yml"):
+    """Write a small-shape copy of a DB training config (ResNet-18 at full
+    depth, FPN `fpn`, `size`x`size` crops, batch `batch`, float32, CPU, one
+    epoch, eval after it) to `path` and return it."""
+    import os
+
+    import yaml
+
+    from pytorchocr_tpu_torch.utils.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, base))
+    g = cfg["Global"]
+    g.update(use_gpu=False, use_amp=False, epoch_num=1, print_batch_step=1,
+             save_model_dir=str(save_dir), eval_epoch_step=[0, 1], log_smooth_window=2)
+    cfg["Architecture"]["Neck"]["out_channels"] = fpn
+    for op in cfg["Train"]["dataset"]["transforms"]:
+        name = next(iter(op))
+        if name in ("FusedDetAugCrop", "EastRandomCropData"):
+            op[name]["size"] = [size, size]
+    for op in cfg["Eval"]["dataset"]["transforms"]:
+        if "DetResizeForTest" in op:
+            op["DetResizeForTest"] = {"limit_side_len": size, "limit_type": "min"}
+    cfg["Train"]["dataset"]["label_file_list"] = [str(train_label)]
+    cfg["Eval"]["dataset"]["label_file_list"] = [str(eval_label)]
+    cfg["Train"]["loader"].update(batch_size_per_card=batch, num_workers=1)
+    cfg["Eval"]["loader"].update(num_workers=1)
+
+    def plain(obj):
+        if isinstance(obj, dict):
+            return {k: plain(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return [plain(v) for v in obj]
+        return obj
+
+    with open(path, "w") as f:
+        yaml.safe_dump(plain(cfg), f, sort_keys=False)
+    return str(path)
+
