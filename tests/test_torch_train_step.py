@@ -295,3 +295,32 @@ def test_frozen_subtree_gets_neither_moments_nor_updates():
     assert not all(torch.equal(p, h) for p, h in zip(net.head.parameters(), head))
     step((x,))
     assert not all(torch.equal(p, b) for p, b in zip(net.transform.parameters(), before))
+
+
+def test_pretrained_loads_by_name_and_shape(setup, tmp_path):
+    """Architecture.Backbone.{pretrained, ckpt_path} (det_r18_db.yml's
+    ImageNet init): a missing path is skipped, as in JAX; a .pt of the
+    backbone loads into the backbone. Global.pretrained_model: the
+    parameters of a port checkpoint, matched by name and shape."""
+    from pytorchocr_tpu_torch.utils.save_load import (load_backbone_pretrained,
+                                                      load_pretrained_params)
+
+    s = setup
+    src, opt, _ = _port(s)
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(1.0)
+    dst = build_model(s["cfg"]["Architecture"])
+    arch = {"Backbone": {"pretrained": True, "ckpt_path": str(tmp_path / "missing.pt")}}
+    before = copy.deepcopy(dst.state_dict())
+    load_backbone_pretrained(dst, arch)
+    assert all(torch.equal(before[k], v) for k, v in dst.state_dict().items())
+    torch.save(src.backbone.state_dict(), tmp_path / "backbone.pt")
+    arch["Backbone"]["ckpt_path"] = str(tmp_path / "backbone.pt")
+    load_backbone_pretrained(dst, arch)
+    assert all(torch.equal(v, dst.backbone.state_dict()[k])
+               for k, v in src.backbone.state_dict().items())
+    assert torch.equal(dst.head.binarize.deconv2.weight, before["head.binarize.deconv2.weight"])
+    save_model(src, opt, {}, str(tmp_path), prefix="best_accuracy")
+    load_pretrained_params(dst, str(tmp_path / "best_accuracy"))
+    assert all(torch.equal(v, dst.state_dict()[k]) for k, v in src.state_dict().items())
