@@ -1959,9 +1959,9 @@ def train_parts(config, device, amp):
 def f64_reference_step(config, batch):
     """The same train step on the CPU in float64 (model, input, labels and
     loss; the DB head's sigmoids stay float32, as the module computes them):
-    the reference the card's float32 step is held to. PyTorch's float32 BN
-    statistics on the CPU drift ~1e-4 relative from float64 over a 640x640
-    batch, 100x the card's float32, so the CPU's float32 is no reference."""
+    the reference the card's float32 step is held to. The CPU's own float32
+    step lands several times further from it than the card's (phase 11
+    reports both), so the CPU's float32 is no reference."""
     import torch
 
     from pytorchocr_tpu_torch.losses import build_loss

@@ -102,7 +102,7 @@ def test_basic_losses_match_jax(fn):
     p = torch.from_numpy(pred).requires_grad_(True)
     val = tf(p, torch.from_numpy(gt), torch.from_numpy(mask))
     val.backward()
-    np.testing.assert_allclose(float(val), float(jval), **LOSS)
+    np.testing.assert_allclose(float(val.detach()), float(jval), **LOSS)
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrad), **GRAD)
 
 
@@ -272,3 +272,25 @@ def test_train_mode_bn_running_stats_match_flax():
     np.testing.assert_allclose(plain.running_var.numpy(),
                                0.9 * stats["var"] + 0.1 * batch_var * 18 / 17, rtol=1e-5)
     assert np.abs(plain.running_var.numpy() - np.asarray(want["var"])).max() > 1e-3
+
+
+def test_flax_fast_batch_variance_loses_digits_the_port_keeps():
+    """flax's train-mode BN takes the batch variance as E[x^2] - E[x]^2 in
+    float32 (use_fast_variance), which loses digits where |mean| >> std; the
+    port normalises with F.batch_norm's stable variance, which agrees with
+    flax's stable mode (use_fast_variance=False) and with float64. This is
+    why the train-step test runs flax with its stable variance."""
+    rng = np.random.RandomState(6)
+    x = (300.0 + 0.05 * rng.randn(2, 8, 8, 4)).astype(np.float32)  # |mean| / std = 6000
+    exact = x.astype(np.float64).reshape(-1, 4)
+    exact = (exact - exact.mean(0)) / np.sqrt(exact.var(0) + 1e-5)
+    outs = {}
+    for fast in (True, False):
+        bn = nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                          use_fast_variance=fast)
+        v = bn.init(jax.random.PRNGKey(0), x)
+        y, _ = bn.apply(v, x, mutable=["batch_stats"])
+        outs[fast] = np.abs(np.asarray(y).reshape(-1, 4) - exact).max()
+    ours = BatchNorm2d(4).train()(nchw(x)).permute(0, 2, 3, 1).detach().numpy()
+    ours = np.abs(ours.reshape(-1, 4) - exact).max()
+    assert ours < 1e-2 and outs[False] < 1e-2 and outs[True] > 10 * max(ours, outs[False])

@@ -4,10 +4,12 @@ batch 2, float32) bridged from the JAX init, fed the same two loader
 batches.
 
 flax's BatchNorm computes the batch variance as E[x^2] - E[x]^2 in float32
-(use_fast_variance), which loses digits wherever |mean| >> std; the port's
-F.batch_norm computes it stably. Left as it is, that rounding alone moves
-the stem's gradient by ~1% of its norm through the 20 train-mode BNs. The
-train-step test therefore runs flax with its stable variance
+(use_fast_variance), which loses digits wherever |mean| >> std
+(test_torch_train_loss_optim.py::test_flax_fast_batch_variance_loses_digits_the_port_keeps);
+the port's F.batch_norm computes it stably. Left as it is, that rounding
+moves the early layers' gradients, through the 20 train-mode BNs, well past
+the bound below. The train-step test therefore runs flax with its stable
+variance
 (`_compute_stats(use_fast_variance=False)`, a rounding choice, not another
 function); then every gradient agrees to a relative L2 of 5e-4. Adam
 normalises each update to about the LR, so a gradient within rounding of 0
