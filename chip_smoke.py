@@ -357,6 +357,7 @@ def phase_kernels(dev, card, int32_rate):
         "736x1280 random": (rng.rand(H, W) > 0.5),
         "736x1280 text-like": text_like_binary(rng, H, W, 300),
         "184x320 text-like": text_like_binary(rng, 184, 320, 20),
+        "736x736 text-like": text_like_binary(rng, 736, 736, 170),  # the training eval's pages
         "4096x256 tall": (rng.rand(4096, 256) > 0.4),
         "64x20000 long": (rng.rand(64, 20000) > 0.4),
         "97x1001 odd": (rng.rand(97, 1001) > 0.3),
@@ -1791,13 +1792,14 @@ def match_iou(runs, refs, min_iou=0.5):
     return matched, same
 
 
-def device_time(fn, call_s):
+def device_time(fn, call_s, sums=()):
     """Card time of one call of `fn` from a torch.profiler trace: the time of
     the kernels and copies on the card summed (work that overlaps counts
     twice), as a share of `call_s`, the same call's unprofiled wall time,
-    the five kernels that take the most, and the port's own kernels with
-    the records the trace holds of them (the tracer can drop some). Host-side
-    op events, which carry their kernels' time too, are left out."""
+    the five kernels that take the most, the total of the kernels whose name
+    holds each string of `sums`, and the port's own kernels with the records
+    the trace holds of them (the tracer can drop some). Host-side op events,
+    which carry their kernels' time too, are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1814,9 +1816,12 @@ def device_time(fn, call_s):
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
     ours = [e for e in events if any(k in e.key for k in (
         "runmax_", "propagate_tile", "int8_conv_", "requant_kernel"))]
-    return "card busy %.1f ms of a %.1f ms call (%.1f%%); most: %s; the port's kernels: %s" % (
+    totals = "".join("; all %s %.2f ms" % (name, sum(
+        e.self_device_time_total for e in events if name in e.key) / 1e3) for name in sums)
+    return "card busy %.1f ms of a %.1f ms call (%.1f%%); most: %s%s; the port's kernels: %s" % (
         busy_ms, call_s * 1e3, 100.0 * busy_ms / (call_s * 1e3),
         "; ".join("%s %.2f ms" % (e.key[:60], e.self_device_time_total / 1e3) for e in top),
+        totals,
         "; ".join("%s %.3f ms over %d records" % (
             kernel_name(e.key), e.self_device_time_total / 1e3, e.count) for e in ours)
         or "none traced",
@@ -1982,73 +1987,136 @@ def f64_reference_step(config, batch):
     return model, opt, {k: float(v.detach()) for k, v in losses.items()}, grads
 
 
+def card_step(config, dev, batch, tf32):
+    """One float32 train step through the trainer's step on the card from
+    the seeded weights, TF32 on or off: (losses, gradients, state_dict after
+    the update, parameters before it), on the CPU in float64."""
+    import torch
+
+    from pytorchocr_tpu_torch.trainer import batch_to_device
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        model, _, step = train_parts(config, dev, amp=False)
+        p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
+        losses = {k: float(v) for k, v in step(batch_to_device(batch, dev)).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    return losses, grads, {k: v.double().cpu() for k, v in model.state_dict().items()}, p0
+
+
+# the worst relative L2 of a gradient leaf that the card's float32 step may
+# show against the float64 step: between the TF32-off and TF32-on readings
+# (3.73e-3 and 1.67e-1 on an H100, chip_smoke.py phase 11)
+GRAD_LIMIT = 2e-2
+
+
+def held_step(step, ref, floor, lr):
+    """How far a card step `step` (card_step's tuple) lands from the float64
+    reference `ref` (losses, gradients, state_dict), each leaf's rounding
+    floor `floor` being the CPU float32 step's worst gradient error in that
+    leaf (the card does not enter it): the worst relative loss error; the
+    worst gradient leaf by relative L2; `elem`, the worst leaf's largest
+    elementwise gradient error over its floor; the parameters after the
+    update, which may move up to 2 lr where the reference gradient is within
+    rounding of 0 (|g| at most the floor, or under 1e-6: Adam's eps region)
+    and elsewhere within 1e-2 lr + 1e-6 |p|; and the BN running statistics.
+    `margin` is the least ratio of a leaf's floor to the largest |g| that
+    needed it: how many times smaller the floors could be and still excuse
+    every move past 1e-2 lr. The deconv1 biases (gradient 0 up to rounding)
+    stay out of the gradient figures."""
+    l_card, g_card, card_sd, p0 = step
+    l_ref, g_ref, ref_sd = ref
+    loss = max((abs(l_card[k] - l_ref[k]) / abs(l_ref[k]), k) for k in l_ref)
+    worst, elem = (0.0, ""), (0.0, "")
+    for k, g in g_ref.items():
+        if not k.endswith("deconv1.bias"):
+            worst = max(worst, (float((g_card[k] - g).norm() / g.norm()), k))
+            elem = max(elem, (float((g_card[k] - g).abs().max()) / floor[k], k))
+    excused = total = outside = 0
+    margin = float("inf")
+    for k, g in g_ref.items():
+        diff = (card_sd[k] - ref_sd[k]).abs()
+        near0 = (g.abs() <= floor[k]) | (g.abs() < 1e-6)
+        moved = (diff > 1e-2 * lr + 1e-6 * p0[k].abs()) & (g.abs() >= 1e-6)
+        outside += int((diff[near0] > 2 * lr).sum()) + int((moved & ~near0).sum())
+        if moved.any():
+            margin = min(margin, floor[k] / float(g.abs()[moved].max()))
+        excused += int(near0.sum())
+        total += g.numel()
+    bn = 0.0  # |diff| / (|v| + 1e-2): relative, absolute near 0
+    for k, v in ref_sd.items():
+        if "running" in k:
+            bn = max(bn, float(((card_sd[k] - v).abs() / (v.abs() + 1e-2)).max()))
+    return dict(value=l_card["loss"], loss=loss, grad=worst, elem=elem, outside=outside,
+                excused=excused, total=total, margin=margin, bn=bn)
+
+
 def compare_f32_step(config, dev, batch, card):
     """One float32 train step (TF32 off) through the trainer's step on the
     card against the float64 reference on the CPU (f64_reference_step), from
     the same seeded weights and batch: the loss and its terms (rtol 1e-4),
-    every gradient (relative L2 <= 2e-2; the deconv1 biases, which feed a
-    train-mode BN and so have gradient 0 up to rounding, by a norm under 1e-4
-    of their weight's gradient norm), the parameters after the update (within
-    1e-2 lr, but within 2 lr where the gradient is within rounding of 0) and
-    the BN running statistics (|diff| <= 1e-3 (|v| + 1e-2))."""
+    every gradient (relative L2 <= GRAD_LIMIT, and elementwise within the
+    CPU float32 step's worst error in its leaf; the deconv1 biases, which
+    feed a train-mode BN and so have gradient 0 up to rounding, by a norm
+    under 1e-4 of their weight's gradient norm), the parameters after the
+    update (held_step) and the BN running statistics (|diff| <= 1e-3 (|v| +
+    1e-2)). The control: the same step with TF32 on must fail the gradient
+    limit, or the limit tells float32 from TF32 apart no more."""
     import torch
 
     from pytorchocr_tpu_torch.trainer import batch_to_device
 
     m_ref, opt, l_ref, g_ref = f64_reference_step(config, batch)
+    ref = l_ref, g_ref, m_ref.state_dict()
     cpu_model, _, cpu_step = train_parts(config, torch.device("cpu"), amp=False)
     l_cpu = float(cpu_step(batch_to_device(batch, torch.device("cpu")))["loss"])
+    floor = {k: float((p.grad.double() - g_ref[k]).abs().max())
+             for k, p in cpu_model.named_parameters()}
     g_cpu = max(float((p.grad.double() - g_ref[k]).norm() / g_ref[k].norm())
                 for k, p in cpu_model.named_parameters() if not k.endswith("deconv1.bias"))
     del cpu_model, cpu_step
-    model, _, step = train_parts(config, dev, amp=False)
-    p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
-    l_card = {k: float(v) for k, v in step(batch_to_device(batch, dev)).items()}
-    g_card = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    lr = float(opt.lr_schedule(0))
+    step = card_step(config, dev, batch, tf32=False)
+    got = held_step(step, ref, floor, lr)
+    control = held_step(card_step(config, dev, batch, tf32=True), ref, floor, lr)
+    l_card, g_card = step[:2]
     for k in l_ref:
         check(abs(l_card[k] - l_ref[k]) <= 1e-4 * abs(l_ref[k]),
               "train f32 step: %s %.7g on the card against %.7g (CPU float64)"
               % (k, l_card[k], l_ref[k]))
-    worst = (0.0, "")
     for k, g in g_ref.items():
         if k.endswith("deconv1.bias"):
             scale = 1e-4 * float(g_ref[k[:-4] + "weight"].norm())
             check(float(g.norm()) < scale and float(g_card[k].norm()) < scale,
                   "train f32 step: %s has a gradient" % k)
-            continue
-        worst = max(worst, (float((g_card[k] - g).norm() / g.norm()), k))
-    check(worst[0] <= 2e-2, "train f32 step: gradient %s off by %.3g (relative L2)"
-          % worst[::-1])
-    lr = float(opt.lr_schedule(0))
-    ref_sd = m_ref.state_dict()
-    card_sd = {k: v.double().cpu() for k, v in model.state_dict().items()}
-    excused = total = 0
-    for k in g_ref:
-        g, gd = g_ref[k], g_card[k]
-        diff = (card_sd[k] - ref_sd[k]).abs()
-        near0 = (g.abs() <= 4 * (gd - g).abs()) | (g.abs() < 1e-6)  # within rounding of 0
-        check(bool((diff[near0] <= 2 * lr).all()), "train f32 step: %s moved > 2 lr" % k)
-        far = diff[~near0]
-        check(bool((far <= 1e-2 * lr + 1e-6 * p0[k].abs()[~near0]).all()),
-              "train f32 step: %s differs after the update (max %.3g)"
-              % (k, float(far.max()) if far.numel() else 0.0))
-        excused += int(near0.sum())
-        total += g.numel()
-    bn_worst = 0.0  # |diff| / (|v| + 1e-2): relative, absolute near 0
-    for k, v in ref_sd.items():
-        if "running" in k:
-            bn_worst = max(bn_worst, float(((card_sd[k] - v).abs() / (v.abs() + 1e-2)).max()))
-    check(bn_worst <= 1e-3, "train f32 step: BN running statistics off by %.3g" % bn_worst)
+    check(got["grad"][0] <= GRAD_LIMIT, "train f32 step: gradient %s off by %.3g (relative L2)"
+          % got["grad"][::-1])
+    check(got["elem"][0] <= 1.0, "train f32 step: gradient %s off by %.3g of its leaf's CPU "
+          "float32 error" % got["elem"][::-1])
+    check(got["outside"] == 0, "train f32 step: %d parameters moved past their bound after the "
+          "update" % got["outside"])
+    check(got["bn"] <= 1e-3, "train f32 step: BN running statistics off by %.3g" % got["bn"])
+    check(control["grad"][0] > GRAD_LIMIT, "train f32 step: the TF32 control's worst gradient "
+          "%.3g is within the limit %.3g" % (control["grad"][0], GRAD_LIMIT))
     say("train-f32", "one float32 step (bs 2, %dx%d, TF32 off) through the trainer's step on %s "
         "against the same step in float64 on the CPU: loss %.6f against %.6f (rtol 1e-4, each "
-        "term too), gradients worst %.2e relative L2 (%s), parameters within 1e-2 lr but %d of "
-        "%d elements with a gradient within rounding of 0 (within 2 lr = %.2e), BN running "
-        "statistics worst %.2e of |v| + 1e-2"
-        % (TRAIN_SIZE, TRAIN_SIZE, card, l_card["loss"], l_ref["loss"], worst[0], worst[1],
-           excused, total, 2 * lr, bn_worst))
-    say("train-f32", "the CPU's own float32 step against the same float64 reference (a report): "
-        "loss %.6f, gradients worst %.2e relative L2; the card's float32: %.6f, %.2e"
-        % (l_cpu, g_cpu, l_card["loss"], worst[0]))
+        "term too), gradients worst %.2e relative L2 (%s; limit %.0e) and elementwise at most "
+        "%.3g of the leaf's CPU float32 worst error (%s; limit 1), parameters within 1e-2 lr "
+        "but %d of %d elements whose float64 gradient is within rounding of 0 (under the "
+        "leaf's CPU float32 worst error or 1e-6; within 2 lr = %.2e; the floors could be %.3g "
+        "times smaller), BN running statistics worst %.2e of |v| + 1e-2"
+        % (TRAIN_SIZE, TRAIN_SIZE, card, l_card["loss"], l_ref["loss"], got["grad"][0],
+           got["grad"][1], GRAD_LIMIT, got["elem"][0], got["elem"][1], got["excused"],
+           got["total"], 2 * lr, got["margin"], got["bn"]))
+    say("train-f32", "the control, the same step with TF32 on: loss %.6f (worst term %.2e "
+        "relative), gradients worst %.2e relative L2 (%s) and elementwise %.3g of the CPU "
+        "float32 error, %d parameters past their bound, BN statistics worst %.2e; the CPU's own "
+        "float32 step (a report): loss %.6f, gradients worst %.2e relative L2"
+        % (control["value"], control["loss"][0], control["grad"][0], control["grad"][1],
+           control["elem"][0], control["outside"], control["bn"], l_cpu, g_cpu))
 
 
 def loader_breakdown(config, label, n=16):
@@ -2158,14 +2226,39 @@ def phase_train(dev, card, tmp):
     compare_f32_step(config, dev, batches[0], card)
     checkpoint_round_trip(config, dev, batches, tmp)
 
-    # the entry point, as `python -m pytorchocr_tpu_torch.tools.train` runs it
+    # the entry point, as `python -m pytorchocr_tpu_torch.tools.train` runs it;
+    # every K1 call of its evaluate is recorded and held to the plain version after
+    wrapped, calls = cc_label.segmented_runmax, []
+
+    def record(vals, mask, axis, prev=None):
+        out = wrapped(vals, mask, axis, prev)
+        got, changed = (out, None) if prev is None else out
+        calls.append((axis,) + tuple(None if t is None else t.clone()
+                                     for t in (vals, mask, prev, got, changed)))
+        return out
+
     runmax.launches = 0
     cc_label.alternations = 0
     torch.cuda.synchronize()
+    cc_label.segmented_runmax = record
     t0 = time.perf_counter()
-    report = train_cli.run(argv)
+    try:
+        report = train_cli.run(argv)
+    finally:
+        cc_label.segmented_runmax = wrapped
     run_s = time.perf_counter() - t0
     k1 = runmax.launches
+    check(len(calls) == k1, "train-eval: %d K1 calls recorded for %d launches" % (len(calls), k1))
+    shapes = {}
+    for axis, vals, mask, prev, got, changed in calls:
+        want = runmax.segmented_runmax_ref(vals, mask, axis)
+        check(torch.equal(got, want), "train-eval: runmax %s axis %d differs from the plain "
+              "version" % (tuple(vals.shape), axis))
+        if prev is not None:
+            check(int(changed.item()) == int((want != prev).any()),
+                  "train-eval: runmax changed flag at %s" % (tuple(vals.shape),))
+        shapes[tuple(vals.shape), axis] = shapes.get((tuple(vals.shape), axis), 0) + 1
+    del calls
     losses = report["losses"]
     check(report["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
           "train: %d steps, not %d" % (report["steps"], TRAIN_STEPS))
@@ -2179,13 +2272,18 @@ def phase_train(dev, card, tmp):
             report["steps"], TRAIN_BS, TRAIN_SIZE, TRAIN_SIZE, TRAIN_PAGES, first, last,
             ", ".join("%.3f" % v for v in losses[::20])))
     say("train", "%.3f steps/s, %.1f samples/s over the train iterations (%.1f s of %.1f s in "
-        "the call); loader wait %.1f%% of it; %s"
+        "the call); loader wait %.1f%% of it, the batches' host-to-device copies (with the "
+        "wait for the step before them) %.1f%%; %s"
         % (report["steps"] / report["wall_s"], report["samples"] / report["wall_s"],
-           report["wall_s"], run_s, 100.0 * report["reader_s"] / report["wall_s"], card))
+           report["wall_s"], run_s, 100.0 * report["reader_s"] / report["wall_s"],
+           100.0 * report["copy_s"] / report["wall_s"], card))
     say("train-eval", "bucketed evaluate after the last epoch on %d pages: runmax.launches %d "
-        "(alternations %d), hmean %.4f, precision %.4f, recall %.4f, %.2f pages/s (its first "
-        "call) on %s" % (EVAL_PAGES, k1, cc_label.alternations, best["hmean"],
-                         best["precision"], best["recall"], best["fps"], card))
+        "(alternations %d), each launch's output == the plain version on its inputs (%s), "
+        "hmean %.4f, precision %.4f, recall %.4f, %.2f pages/s (its first call, recording "
+        "each launch's inputs) on %s"
+        % (EVAL_PAGES, k1, cc_label.alternations,
+           ", ".join("%dx%d axis %d: %d" % (hw + (a, n)) for (hw, a), n in sorted(shapes.items())),
+           best["hmean"], best["precision"], best["recall"], best["fps"], card))
 
     eval_argv = argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")]
     eval_cli.run(eval_argv)
@@ -2217,7 +2315,7 @@ def phase_train(dev, card, tmp):
     steps()
     call_s = time.perf_counter() - t0
     say("train", "profiler, 4 train steps with their loader waits: %s on %s"
-        % (device_time(steps, call_s), card))
+        % (device_time(steps, call_s, sums=("reduce_kernel", "batch_norm")), card))
     it.close()
     say("train", "phase 11 took %.1f s" % (time.perf_counter() - t_phase))
     return k1

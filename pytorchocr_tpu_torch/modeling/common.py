@@ -51,24 +51,25 @@ ACTS = {
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose training-mode running statistics follow flax's
     BatchNorm (modeling/common.py:125): the batch mean and the *biased*
-    batch variance E[x^2] - E[x]^2, both reduced in float32 from the input
-    (torch's own update takes the unbiased variance, n/(n-1) times larger),
-    blended as `flax_momentum * running + (1 - flax_momentum) * batch` with
-    flax_momentum = 1 - momentum (flax's 0.9 is torch's 0.1). The normalisation
-    itself is F.batch_norm's, which divides by the biased variance as flax
-    does. Eval mode is nn.BatchNorm2d's."""
+    batch variance (torch's own update takes the unbiased variance, n/(n-1)
+    times larger), blended as `flax_momentum * running + (1 - flax_momentum)
+    * batch` with flax_momentum = 1 - momentum (flax's 0.9 is torch's 0.1).
+
+    Both statistics are the ones the normalisation itself used: the batch
+    mean and 1/sqrt(var + eps) that F.batch_norm's kernel saves for its
+    backward (torch._batch_norm_impl_index is the op F.batch_norm calls), so
+    no reduction runs twice. That variance is the stable one; flax's default
+    E[x^2] - E[x]^2 in float32 (use_fast_variance) differs from it only by
+    the digits it loses where |mean| >> std. Eval mode is nn.BatchNorm2d's."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        y, mean, invstd, _, _ = torch._batch_norm_impl_index(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+            torch.backends.cudnn.enabled)
         with torch.no_grad():
-            dims = (0, 2, 3)
-            n = x.numel() // x.shape[1]
-            acc = torch.promote_types(x.dtype, torch.float32)  # flax: at least float32
-            mean = torch.mean(x, dims, dtype=acc)
-            mean2 = torch.linalg.vector_norm(x, 2, dims, dtype=acc) ** 2 / n
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            var = torch.clamp(invstd.pow(-2) - self.eps, min=0.0)
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
             self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)

@@ -4,7 +4,9 @@ pytorchocr_tpu/native/__init__.py (the entry points the port calls:
 
 The source, `csrc/geometry_kernels.cpp`, is host C++: it is compiled with g++
 at first use into `_build/` (listed in .gitignore), the library's name
-carrying a hash of the source and the flags, and loaded with ctypes. Where
+carrying a hash of the source, the flags it was built with and the host's
+target (what -march=native resolves to), so a `_build/` made on another
+host is never loaded here; then it is loaded with ctypes. Where
 no g++ is found the callers take their numpy paths (`native_available()`).
 """
 
@@ -25,20 +27,28 @@ _lib = None
 _lock = threading.Lock()  # the loader's worker threads reach the first use together
 
 
+def _flags_and_target():
+    """The build flags, and g++'s resolution of -march=native on this host
+    (every target option it sets); without -march=native where the
+    toolchain rejects it (native/__init__.py:25)."""
+    try:
+        probe = subprocess.run(["g++", "-march=native", "-Q", "--help=target"], check=True,
+                               capture_output=True, text=True)
+        return list(_FLAGS), probe.stdout
+    except subprocess.CalledProcessError:
+        return [f for f in _FLAGS if f != "-march=native"], ""
+
+
 def _build():
+    flags, target = _flags_and_target()
     with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(_BUILD_DIR, "libocrgeom_%s.so" % digest)
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode() + target.encode())
+    lib = os.path.join(_BUILD_DIR, "libocrgeom_%s.so" % digest.hexdigest()[:16])
     if os.path.exists(lib):
         return lib
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (lib, os.getpid())
-    flags = list(_FLAGS)
-    try:
-        subprocess.run(["g++", *flags, _SRC, "-o", tmp], check=True, capture_output=True)
-    except subprocess.CalledProcessError:
-        flags.remove("-march=native")  # some toolchains reject it (native/__init__.py:25)
-        subprocess.run(["g++", *flags, _SRC, "-o", tmp], check=True, capture_output=True)
+    subprocess.run(["g++", *flags, _SRC, "-o", tmp], check=True, capture_output=True)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
     return lib
 

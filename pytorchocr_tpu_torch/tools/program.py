@@ -215,7 +215,9 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
 
     loss_window = []  # device loss dicts, read at log steps only
     history = []  # every step's device loss, read once at the end
-    report = dict(steps=0, samples=0, wall_s=0.0, reader_s=0.0)
+    # reader_s: waits on the loader; copy_s: the host-to-device copies of the
+    # batches, which also wait for the step before them on the stream
+    report = dict(steps=0, samples=0, wall_s=0.0, reader_s=0.0, copy_s=0.0)
 
     def drain_loss_window():
         for losses_dev, lr_val in loss_window:
@@ -230,12 +232,13 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
         total_samples = 0
         epoch_start = reader_start = time.time()
         for idx, batch_np in enumerate(train_dataloader):
-            batch = batch_to_device(batch_np, device)
-            wait = time.time() - reader_start
+            train_start = time.time()
+            wait = train_start - reader_start
             train_reader_cost += wait
             report["reader_s"] += wait
+            batch = batch_to_device(batch_np, device)
+            report["copy_s"] += time.time() - train_start
             lr = optimizer.current_lr()
-            train_start = time.time()
             losses = train_step(batch)
             history.append(losses["loss"])
             loss_window.append((losses, lr))

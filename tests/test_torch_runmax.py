@@ -96,6 +96,8 @@ def _card_case(name):
     """(vals, mask) of the card cases: the kernels' edge paths."""
     rng = np.random.RandomState(11)
     shapes = {"736x1280": (736, 1280), "37x301 W not a multiple of 4": (37, 301),
+              "736x736 eval page, 24 a lane": (736, 736), "8x513 narrowest 24 a lane": (8, 513),
+              "8x768 widest 24 a lane": (8, 768),
               "97x1001": (97, 1001), "8x2048 widest held row": (8, 2048),
               "8x2049 chunked row loop": (8, 2049), "64x20000 chunked row loop": (64, 20000),
               "2048x64 one row block": (2048, 64), "2049x3 two row blocks": (2049, 3),
@@ -107,7 +109,9 @@ def _card_case(name):
     return np.where(mask, rng.randint(1, 1 << 20, mask.shape), 0).astype(np.int32), mask
 
 
-CARD_CASES = ["736x1280", "37x301 W not a multiple of 4", "97x1001", "8x2048 widest held row",
+CARD_CASES = ["736x1280", "37x301 W not a multiple of 4", "736x736 eval page, 24 a lane",
+              "8x513 narrowest 24 a lane", "8x768 widest 24 a lane", "97x1001",
+              "8x2048 widest held row",
               "8x2049 chunked row loop", "64x20000 chunked row loop", "2048x64 one row block",
               "2049x3 two row blocks", "4096x256 row blocks", "1x5000", "5000x1", "1x1",
               "all masked", "empty"]

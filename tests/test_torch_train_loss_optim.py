@@ -278,19 +278,26 @@ def test_flax_fast_batch_variance_loses_digits_the_port_keeps():
     """flax's train-mode BN takes the batch variance as E[x^2] - E[x]^2 in
     float32 (use_fast_variance), which loses digits where |mean| >> std; the
     port normalises with F.batch_norm's stable variance, which agrees with
-    flax's stable mode (use_fast_variance=False) and with float64. This is
-    why the train-step test runs flax with its stable variance."""
+    flax's stable mode (use_fast_variance=False) and with float64, and blends
+    the same variance into its running statistics. This is why the
+    train-step test runs flax with its stable variance."""
     rng = np.random.RandomState(6)
     x = (300.0 + 0.05 * rng.randn(2, 8, 8, 4)).astype(np.float32)  # |mean| / std = 6000
     exact = x.astype(np.float64).reshape(-1, 4)
+    exact_var = 0.9 + 0.1 * exact.var(0)  # the running variance after one step from 1
     exact = (exact - exact.mean(0)) / np.sqrt(exact.var(0) + 1e-5)
-    outs = {}
+    outs, run_var = {}, {}
     for fast in (True, False):
         bn = nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
                           use_fast_variance=fast)
         v = bn.init(jax.random.PRNGKey(0), x)
-        y, _ = bn.apply(v, x, mutable=["batch_stats"])
+        y, mutated = bn.apply(v, x, mutable=["batch_stats"])
         outs[fast] = np.abs(np.asarray(y).reshape(-1, 4) - exact).max()
-    ours = BatchNorm2d(4).train()(nchw(x)).permute(0, 2, 3, 1).detach().numpy()
+        run_var[fast] = np.abs(np.asarray(mutated["batch_stats"]["var"]) - exact_var).max()
+    bn = BatchNorm2d(4).train()
+    ours = bn(nchw(x)).permute(0, 2, 3, 1).detach().numpy()
     ours = np.abs(ours.reshape(-1, 4) - exact).max()
     assert ours < 1e-2 and outs[False] < 1e-2 and outs[True] > 10 * max(ours, outs[False])
+    ours_var = np.abs(bn.running_var.numpy() - exact_var).max()
+    assert ours_var < 1e-6 and run_var[False] < 1e-6
+    assert run_var[True] > 10 * max(ours_var, run_var[False])

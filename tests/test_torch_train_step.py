@@ -17,8 +17,9 @@ may move its parameter +-lr on one side and -+lr on the other: the
 parameters after 2 steps must agree within 2 x (lr_1 + lr_2) everywhere,
 within 0.1 x lr_1 on >= 97% of them, with the updates correlated > 0.999.
 The losses to rtol 1e-6 at step 1 and 1e-4 at step 2 (after those +-lr
-moves), the BN running statistics (the port keeps flax's fast formula for
-them) to rtol 2e-2 / atol 2e-3 after 2 steps."""
+moves), the BN running statistics (the port blends in the stable variance
+its normalisation used, as flax's stable mode does) to rtol 2e-2 / atol
+2e-3 after 2 steps."""
 
 import copy
 import os
