@@ -2,33 +2,37 @@
 (`transform`, `create_operators`), one module per JAX module of
 pytorchocr_tpu/data/imaug/.
 
-Ported: the eval ops of the deploy entry points and the DB training chain of
-det_r18_db.yml and det_r18_db_synth.yml. Any other op of the JAX registry
-raises NotImplementedError naming the ROADMAP.md item that ports it.
+Ported: the eval ops of the deploy entry points, the DB training chain of
+det_r18_db.yml and det_r18_db_synth.yml, and the CRNN and cls training
+chains (rec_vgg_bilstm_ctc*.yml, cls_mbv3small*.yml). Any other op of the
+JAX registry raises NotImplementedError naming the ROADMAP.md item that
+ports it.
 """
 
 from .fused_aug_crop import FusedDetAugCrop
 from .iaa_augment import IaaAugment
-from .label_ops import DetLabelEncode
+from .label_ops import ClsLabelEncode, CTCLabelEncode, DetLabelEncode
 from .make_border_map import MakeBorderMap
 from .make_shrink_map import MakeShrinkMap
 from .operators import (DecodeImage, DetResizeForTest, KeepKeys, Normalize, NormalizeImage,
                         ToTensor)
 from .random_crop_data import EastRandomCropData
-from .rec_img_aug import ClsResizeImg, RecResizeImg
+from .randaugment import RandAugment
+from .rec_img_aug import ClsResizeImg, RecAug, RecResizeImg
 
 OPS = {op.__name__: op for op in (
     DecodeImage, ToTensor, Normalize, NormalizeImage, KeepKeys, DetResizeForTest,
     RecResizeImg, ClsResizeImg, DetLabelEncode, IaaAugment, EastRandomCropData,
-    FusedDetAugCrop, MakeShrinkMap, MakeBorderMap,
+    FusedDetAugCrop, MakeShrinkMap, MakeBorderMap, ClsLabelEncode, CTCLabelEncode, RecAug,
+    RandAugment,
 )}
 
 _LATER = dict(
-    {name: "A.7" for name in (  # CRNN / cls training, then PSE / PAN training
-        "AttnLabelEncode", "ClsLabelEncode", "CTCLabelEncode", "RecAug", "RandAugment",
+    {name: "A.7" for name in (  # PSE / PAN training and the other training ops
         "RandomCropImgMask", "MakePseGt", "MakePanGt", "CopyPaste", "ColorJitter", "Resize",
         "ToCHWImage",
     )},
+    AttnLabelEncode="A.11",
     RecResizeImgForTest="A.6", TableLabelEncode="A.13",
     TableBoxEncode="A.13", ResizeTableImage="A.13", PaddingTableImage="A.13",
 )

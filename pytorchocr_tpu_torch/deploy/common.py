@@ -16,6 +16,7 @@ import torch
 
 from ..modeling import build_model
 from ..ops import quant
+from ..utils.save_load import model_state
 
 
 def resolve_device(device):
@@ -58,9 +59,12 @@ class Runner:
             self.std = torch.tensor(std, dtype=torch.float32, device=self.device).view(1, 1, 1, -1)
 
     def load_state(self, path):
-        """Load a .pt state_dict (tools/convert_flax_to_torch.py writes one)."""
-        state = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state, strict=True)
+        """Load a .pt state_dict (tools/convert_flax_to_torch.py writes one)
+        or the model of a training checkpoint directory (tools.train writes
+        `latest/`, `best_accuracy/`: their `state.pt` holds {"model",
+        "optimizer", "step"}), as the JAX deploy loads the directory that its
+        training wrote (deploy/common.py:23-29). Every key must match."""
+        self.model.load_state_dict(model_state(path, self.device), strict=True)
         return self
 
     def normalize(self, x):
@@ -95,7 +99,8 @@ class Runner:
 
 
 def build_runner(config, model_path, device, **kwargs):
-    """Architecture config + .pt path -> a loaded Runner."""
+    """Architecture config + a .pt path or a training checkpoint directory ->
+    a loaded Runner."""
     runner = Runner(build_model(config["Architecture"]), device, **kwargs)
     if model_path is not None:
         runner.load_state(model_path)

@@ -40,7 +40,8 @@ def list_images(img_path):
 def parse_args():
     parser = argparse.ArgumentParser(description="pytorchocr_tpu_torch det_model infer")
     parser.add_argument("--config", type=str, help="configuration file to use")
-    parser.add_argument("--model_path", type=str, help=".pt state_dict to use")
+    parser.add_argument("--model_path", type=str,
+                        help=".pt state_dict or training checkpoint directory (OUT/best_accuracy)")
     parser.add_argument("--img_path", type=str, help="test img-path or img-dir")
     parser.add_argument("--out_dir", type=str, help="output directory")
     parser.add_argument("--quant", action="store_true",

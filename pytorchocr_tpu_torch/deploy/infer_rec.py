@@ -23,7 +23,8 @@ MAX_BS = 512
 def parse_args():
     parser = argparse.ArgumentParser(description="pytorchocr_tpu_torch rec_model infer")
     parser.add_argument("--config", type=str, help="configuration file to use")
-    parser.add_argument("--model_path", type=str, help=".pt state_dict to use")
+    parser.add_argument("--model_path", type=str,
+                        help=".pt state_dict or training checkpoint directory (OUT/best_accuracy)")
     parser.add_argument("--img_path", type=str, help="test img-path or img-dir")
     parser.add_argument("--character_dict_path", type=str, default=None)
     parser.add_argument("--out_dir", type=str, help="output directory")

@@ -10,8 +10,9 @@ Usage:
       [--det_quant] --img_path imgs/ --out_dir output/ [--device cuda]
 
 Writes res_<name>.txt (one line per box: coords, text, prob) as the JAX CLI
-does. `--det_quant` runs the detector in int8 PTQ, calibrated on the first
-half of the pages. Not ported: the result images (--show, --font_path).
+does. Each `--*_model_path` takes a .pt state_dict or a training checkpoint
+directory (tools.train's OUT/best_accuracy). `--det_quant` runs the
+detector in int8 PTQ, calibrated on the first half of the pages. Not ported: the result images (--show, --font_path).
 """
 
 import argparse

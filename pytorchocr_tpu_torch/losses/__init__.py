@@ -3,20 +3,22 @@ callables (preds, batch) -> {"loss": scalar tensor, ...}."""
 
 import copy
 
+from .cls_loss import ClsLoss
 from .det_db_loss import DBLoss
+from .rec_ctc_loss import CTCLoss
 
 __all__ = ["build_loss"]
 
-_LATER = {"CTCLoss": "A.7", "ClsLoss": "A.7", "PSELoss": "A.7", "PANLoss": "A.7",
-          "CombinedLoss": "A.12", "SLALoss": "A.13"}
+_SUPPORTED = {"DBLoss": DBLoss, "CTCLoss": CTCLoss, "ClsLoss": ClsLoss}
+_LATER = {"PSELoss": "A.7", "PANLoss": "A.7", "CombinedLoss": "A.12", "SLALoss": "A.13"}
 
 
 def build_loss(config):
     config = copy.deepcopy(config)
     name = config.pop("name")
-    if name == "DBLoss":
-        return DBLoss(**config)
+    if name in _SUPPORTED:
+        return _SUPPORTED[name](**config)
     if name in _LATER:
         raise NotImplementedError("loss %s is not ported yet (ROADMAP.md %s)"
                                   % (name, _LATER[name]))
-    raise NotImplementedError("loss %s: unknown; the port supports ['DBLoss']" % name)
+    raise NotImplementedError("loss %s: unknown; the port supports %s" % (name, list(_SUPPORTED)))

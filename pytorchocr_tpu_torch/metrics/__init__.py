@@ -2,20 +2,22 @@
 
 import copy
 
+from .cls_metric import ClsMetric
 from .det_metric import DetMetric
+from .rec_metric import RecMetric
 
 __all__ = ["build_metric"]
 
-_LATER = {"RecMetric": "A.7", "ClsMetric": "A.7", "DistillationMetric": "A.12",
-          "TableMetric": "A.13"}
+_SUPPORTED = {"DetMetric": DetMetric, "RecMetric": RecMetric, "ClsMetric": ClsMetric}
+_LATER = {"DistillationMetric": "A.12", "TableMetric": "A.13"}
 
 
 def build_metric(config):
     config = copy.deepcopy(config)
     name = config.pop("name")
-    if name == "DetMetric":
-        return DetMetric(**config)
+    if name in _SUPPORTED:
+        return _SUPPORTED[name](**config)
     if name in _LATER:
         raise NotImplementedError("metric %s is not ported yet (ROADMAP.md %s)"
                                   % (name, _LATER[name]))
-    raise NotImplementedError("metric %s: unknown; the port supports ['DetMetric']" % name)
+    raise NotImplementedError("metric %s: unknown; the port supports %s" % (name, list(_SUPPORTED)))

@@ -7,9 +7,18 @@ the JAX backward direction also runs over the flipped padded sequence). The
 concatenation of both directions, not nn.LSTM's proj_size (which projects
 inside the recurrence).
 
-The LSTM always runs in float32, autocast off: the JAX cell keeps an f32
-carry under bf16 compute, and the recurrence is a small share of the
-recognizer's time.
+The LSTM always runs in float32, autocast off. The JAX cell runs its
+matmuls in bf16 under bf16 compute and keeps an f32 carry; the port keeps
+the whole recurrence in float32 (a recorded difference, ROADMAP.md C), and
+the recurrence is a small share of the recognizer's time.
+
+The JAX BiLSTM has one bias per direction, `b (2, 4H)`; nn.LSTM has two,
+`bias_ih` and `bias_hh`, which enter the gates as their sum. `bias_ih`
+stands for `b`; `bias_hh` is held at zero and takes no gradient
+(requires_grad False), so the optimizer never sees it: trained as a second
+copy of `b` it would get the same gradient and Adam would move the sum by
+twice the JAX step. It stays in the state_dict, so `.pt` files and
+checkpoints keep their keys.
 """
 
 import torch
@@ -35,6 +44,10 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.rnn = nn.LSTM(in_channels, hidden_size, batch_first=True,
                            bidirectional=True)
+        for name, b in self.rnn.named_parameters():
+            if name.startswith("bias_hh"):
+                nn.init.zeros_(b)
+                b.requires_grad_(False)
         self.embedding = nn.Linear(2 * hidden_size, proj_size) if proj_size else None
 
     def forward(self, x):

@@ -94,7 +94,9 @@ class OptaxAdam(torch.optim.Optimizer):
 
 
 def build_optimizer(config, epochs, step_each_epoch, parameters):
-    """Returns (optimizer over `parameters`, lr_schedule). From
+    """Returns (optimizer over those of `parameters` that require a gradient,
+    lr_schedule): a parameter that is held fixed (the BiLSTM's `bias_hh`,
+    which has no JAX counterpart) gets no moments. From
     optimizer/__init__.py:70."""
     config = copy.deepcopy(config)
     base_lr = config.pop("base_lr")
@@ -122,7 +124,7 @@ def build_optimizer(config, epochs, step_each_epoch, parameters):
         raise NotImplementedError("optimizer %s is not ported (ROADMAP.md A.15): every config "
                                   "of the repo uses Adam" % optim_name)
     optimizer = OptaxAdam(
-        parameters, lr_schedule, betas=optim_cfg.get("betas", (0.9, 0.999)),
+        [p for p in parameters if p.requires_grad], lr_schedule, betas=optim_cfg.get("betas", (0.9, 0.999)),
         eps=optim_cfg.get("eps", 1e-8), weight_decay=optim_cfg.get("weight_decay", 0.0) or 0.0,
         amsgrad=optim_cfg.get("amsgrad", False))
     return optimizer, lr_schedule

@@ -3,6 +3,8 @@
 Usage:
   python -m pytorchocr_tpu_torch.tools.eval -c configs/det/det_r18_db_synth.yml \
       -o Global.checkpoints=./output/quality/det_r18_db_synth/best_accuracy
+  (configs/rec/rec_vgg_bilstm_ctc_synth.yml and configs/cls/cls_mbv3small_synth.yml
+  alike)
 
 int8 PTQ evaluation: `-o Global.quant=true [Global.quant_calib_n=8]`
 calibrates on the first `quant_calib_n` eval batches (ops/quant.py), then
@@ -24,13 +26,14 @@ from ..postprocess import build_post_process
 from ..trainer import build_input_transform, make_eval_step
 from ..utils.save_load import load_model
 from . import program
-from .train import build_train_model
+from .train import build_train_model, set_head_channels
 
 
 def main(config, device, logger, tsb_writer=None):
     global_config = config["Global"]
     valid_dataloader, _ = build_dataloader(config, "Eval", logger, seed=global_config.get("seed"))
     post_process_class = build_post_process(config["PostProcess"], global_config)
+    set_head_channels(config, post_process_class)
     model = build_train_model(config, device)
     load_model(config, model, None, logger)
     eval_step = make_eval_step(

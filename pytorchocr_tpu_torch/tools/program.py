@@ -5,7 +5,10 @@ The loop, the eval gate (`eval_epoch_step`), the HighestAcc / FixedEpochStep
 checkpoints, the median-smoothed stats and the rank-0-only side effects are
 the JAX loop's. A train step is trainer.make_train_step on one card; the
 losses stay on the card and are read only at log steps, as the JAX loop
-fetches them.
+fetches them. `Global.cal_metric_during_train` (rec and cls) runs the eval
+forward on each train batch after its step, then the post process and the
+metric, every step, as the JAX loop does (:605-613); the post process reads
+the predictions on the host, so that step waits for the card.
 
 Not carried over (ROADMAP.md A.15): `steps_per_dispatch`, the bf16 "wire
 dtype" (the port sends uint8 images and float32 label maps to the card),
@@ -29,8 +32,8 @@ from ..utils.logging import get_logger, print_dict, process_rank
 from ..utils.save_load import save_model
 from ..utils.stats import TrainingStats
 
-SUPPORTED_ALGS = ["DB"]
-_LATER_ALGS = {"CRNN": "A.7", "CLS": "A.7", "PSE": "A.7", "PAN": "A.7", "STARNet": "A.11",
+SUPPORTED_ALGS = ["DB", "CRNN", "CLS"]
+_LATER_ALGS = {"PSE": "A.7", "PAN": "A.7", "STARNet": "A.11",
                "Distillation": "A.12", "SLANet": "A.13"}
 
 
@@ -158,9 +161,11 @@ def preprocess(is_train=False, argv=None):
 def train(config, device, train_dataloader, valid_dataloader, model, loss_class, optimizer,
           global_state, post_process_class, eval_class, logger, tsb_writer=None):
     """The epoch loop with eval and checkpoints. Returns a report: steps,
-    samples, the wall and loader-wait seconds of the train iterations, and
-    every step's loss (one sync at the end). From program.py:291."""
+    samples, the wall, loader-wait, copy and per-step metric seconds of the
+    train iterations, and every step's loss (one sync at the end). From
+    program.py:291."""
     global_config = config["Global"]
+    cal_metric_during_train = global_config.get("cal_metric_during_train", False)
     log_smooth_window = global_config["log_smooth_window"]
     epoch_num = global_config["epoch_num"]
     print_batch_step = global_config["print_batch_step"]
@@ -216,8 +221,10 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
     loss_window = []  # device loss dicts, read at log steps only
     history = []  # every step's device loss, read once at the end
     # reader_s: waits on the loader; copy_s: the host-to-device copies of the
-    # batches, which also wait for the step before them on the stream
-    report = dict(steps=0, samples=0, wall_s=0.0, reader_s=0.0, copy_s=0.0)
+    # batches, which also wait for the step before them on the stream;
+    # metric_s: cal_metric_during_train's eval forward, post process and
+    # metric, which wait for the step
+    report = dict(steps=0, samples=0, wall_s=0.0, reader_s=0.0, copy_s=0.0, metric_s=0.0)
 
     def drain_loss_window():
         for losses_dev, lr_val in loss_window:
@@ -247,6 +254,13 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
             train_run_cost += time.time() - train_start
             total_samples += len(batch_np[0])
             report["samples"] += len(batch_np[0])
+
+            if cal_metric_during_train and model_type != "det":
+                metric_start = time.time()
+                post_result = post_process_class(eval_step(batch[0]), batch_np[1])
+                eval_class(post_result, batch_np)
+                train_stats.update(eval_class.get_metric())
+                report["metric_s"] += time.time() - metric_start
 
             if rank0 and ((global_step > 0 and global_step % print_batch_step == 0)
                           or idx == len(train_dataloader) - 1):

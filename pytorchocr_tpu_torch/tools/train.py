@@ -3,6 +3,8 @@
 Usage:
   python -m pytorchocr_tpu_torch.tools.train -c configs/det/det_r18_db_synth.yml \
       [-o Global.epoch_num=45 ...]
+  (configs/rec/rec_vgg_bilstm_ctc_synth.yml and configs/cls/cls_mbv3small_synth.yml
+  alike: CRNN and the direction classifier)
 
 Runs on the first card; `-o Global.use_gpu=False` runs on the CPU, and
 `use_gpu: True` without a card raises. The model starts from the JAX
@@ -22,6 +24,15 @@ from ..postprocess import build_post_process
 from ..utils.save_load import load_backbone_pretrained, load_model
 from ..utils.seeded import seeded_init_
 from . import program
+
+
+def set_head_channels(config, post_process_class):
+    """The charset's length (blank included) becomes the CTC head's
+    out_channels, as the JAX entry points set it (tools/train.py:55-63,
+    tools/eval.py:49-56). Distillation's per-model heads wait for ROADMAP.md
+    A.12."""
+    if hasattr(post_process_class, "character"):
+        config["Architecture"]["Head"]["out_channels"] = len(post_process_class.character)
 
 
 def build_train_model(config, device):
@@ -50,7 +61,9 @@ def main(config, device, logger, tsb_writer):
         valid_dataloader, _ = build_dataloader(config, "Eval", logger,
                                                seed=global_config.get("seed"))
 
+    # the post process first: its charset sizes the head
     post_process_class = build_post_process(config["PostProcess"], global_config)
+    set_head_channels(config, post_process_class)
     model = build_train_model(config, device)
     loss_class = build_loss(config["Loss"])
     optimizer, _ = build_optimizer(config["Optimizer"], epochs=global_config["epoch_num"],

@@ -6,7 +6,7 @@ The JAX step is one jitted graph: forward in train mode, loss, backward,
 optimizer update and BN statistics. Here it is the same sequence on an
 `nn.Module`: train mode (the flax-statistics BN of modeling/common.py),
 `torch.autocast(bfloat16)` around the forward when `use_amp` (the JAX bf16
-policy), the model's maps cast to float32 before the loss, `backward()`, and
+policy), the model's outputs cast to float32 before the loss, `backward()`, and
 `optimizer.step()` (optimizer.OptaxAdam, optax's arithmetic).
 
 TF32: `set_matmul_precision` turns TF32 off for cuDNN convolutions and cuBLAS
@@ -108,6 +108,19 @@ def restore_frozen_(kept):
             p.copy_(value)
 
 
+def float_preds(preds, dtype=torch.float32):
+    """The model's floating outputs cast to `dtype`: a dict of maps (DB), a
+    tensor (CRNN, cls) or a tuple of tensors. The step casts them to float32
+    before the loss, as the JAX losses cast them (`astype(jnp.float32)`)."""
+    if torch.is_tensor(preds):
+        return preds.to(dtype) if preds.is_floating_point() else preds
+    if isinstance(preds, dict):
+        return {k: float_preds(v, dtype) for k, v in preds.items()}
+    if isinstance(preds, (list, tuple)):
+        return type(preds)(float_preds(v, dtype) for v in preds)
+    return preds
+
+
 def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, frozen=()):
     """Build the train step: step(batch) with batch a tuple of tensors on the
     model's device, batch[0] the NHWC image tensor; returns the loss dict
@@ -121,9 +134,7 @@ def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, 
             images = input_transform(images)
         with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
             preds = model(images.permute(0, 3, 1, 2), data=batch)  # NCHW view
-        preds = {k: v.float() if torch.is_tensor(v) and v.is_floating_point() else v
-                 for k, v in preds.items()}
-        losses = loss_fn(preds, batch)
+        losses = loss_fn(float_preds(preds), batch)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         kept = mask_frozen_(model, optimizer.param_groups[0]["count"], frozen) if frozen else ()

@@ -66,6 +66,13 @@ def _read_state(path, device):
     return torch.load(path, map_location=device, weights_only=True)
 
 
+def model_state(path, device):
+    """The model's state_dict from a checkpoint directory (its `state.pt`'s
+    "model") or from a bare .pt state_dict."""
+    state = _read_state(path, device)
+    return state["model"] if os.path.isdir(path) else state
+
+
 def load_model(config, model, optimizer=None, logger=None):
     """Resume from Global.checkpoints (model, optimizer and global_state) or
     finetune from Global.pretrained_model (parameters only). Returns

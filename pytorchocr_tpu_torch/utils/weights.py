@@ -12,6 +12,7 @@ the flax ones, so a torch module at `a.b.c` reads the flax subtree
   BiLSTM            wi (2, C, 4H), wh (2, H, 4H), b (2, 4H), direction-major with
                     gates i, f, g, o -> weight_ih_l0[_reverse] = wi[d].T,
                     weight_hh_l0[_reverse] = wh[d].T, bias_ih = b[d], bias_hh = 0
+                    (bias_hh is held at 0 and never trained: modeling/necks/rnn.py)
 
 Every torch tensor must find its flax leaf and every flax leaf must be used;
 anything else raises.
@@ -167,7 +168,9 @@ def load_optax_adam_state(optimizer, model, opt_state, batch_stats):
     {"count": int, "mu": tree, "nu": tree[, "nu_max": tree]} of numpy leaves
     in the flax params layout (the ScaleByAmsgradState fields); each tree
     goes through the param bridge, so a conv's moments land in its weight's
-    layout. `batch_stats` only completes the bridge's BN entries."""
+    layout. `batch_stats` only completes the bridge's BN entries. Only the
+    optimizer's own parameters get moments: the BiLSTM's `bias_hh`, which
+    build_optimizer leaves out, is mapped by nothing."""
     named = dict(model.named_parameters())
     moments = {}
     for key in ("mu", "nu", "nu_max"):

@@ -74,8 +74,11 @@ def nhwc(t):
     return np.transpose(t.detach().numpy(), (0, 2, 3, 1))
 
 
-def jax_train_state(cfg_path, example_shape, char_num=None):
-    """A freshly initialised JAX train state of the config's model."""
+def jax_train_state(cfg_path, example_shape, char_num=None, optimizer=None, steps=1):
+    """A freshly initialised JAX train state of the config's model. With
+    `optimizer` (an Optimizer config section) its state is that optimizer's,
+    for one epoch of `steps` steps, and (state, model, tx, lr_schedule) are
+    returned."""
     import jax
 
     from pytorchocr_tpu.modeling import build_model
@@ -87,12 +90,14 @@ def jax_train_state(cfg_path, example_shape, char_num=None):
     if char_num is not None:
         config["Architecture"]["Head"]["out_channels"] = char_num
     model = build_model(config["Architecture"])
-    tx, _ = build_optimizer(
-        {"base_lr": 1e-3, "optim": {"name": "Adam"}}, epochs=1, step_each_epoch=1
+    tx, schedule = build_optimizer(
+        optimizer or {"base_lr": 1e-3, "optim": {"name": "Adam"}}, epochs=1,
+        step_each_epoch=steps
     )
-    return create_train_state(
+    state = create_train_state(
         model, tx, jax.random.PRNGKey(0), (np.zeros(example_shape, np.float32),)
     )
+    return state if optimizer is None else (state, model, tx, schedule)
 
 
 def quant_leaves(tree, prefix=()):
@@ -146,6 +151,14 @@ def rect_hmean(got, want, min_iou=0.5):
     return 2.0 * matched / total if total else 1.0
 
 
+def _plain(obj):
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    return obj
+
+
 def tiny_db_config(path, train_label, eval_label, save_dir, size=64, fpn=32, batch=2,
                    base="configs/det/det_r18_db_synth.yml"):
     """Write a small-shape copy of a DB training config (ResNet-18 at full
@@ -174,15 +187,44 @@ def tiny_db_config(path, train_label, eval_label, save_dir, size=64, fpn=32, bat
     cfg["Eval"]["dataset"]["label_file_list"] = [str(eval_label)]
     cfg["Train"]["loader"].update(batch_size_per_card=batch, num_workers=1)
     cfg["Eval"]["loader"].update(num_workers=1)
-
-    def plain(obj):
-        if isinstance(obj, dict):
-            return {k: plain(v) for k, v in obj.items()}
-        if isinstance(obj, (list, tuple)):
-            return [plain(v) for v in obj]
-        return obj
-
     with open(path, "w") as f:
-        yaml.safe_dump(plain(cfg), f, sort_keys=False)
+        yaml.safe_dump(_plain(cfg), f, sort_keys=False)
     return str(path)
 
+
+
+def tiny_rec_cls_config(path, kind, train_label, eval_label, save_dir):
+    """Write a small-shape copy of the CRNN (`kind` "rec":
+    rec_vgg_bilstm_ctc_synth.yml with VGG scale 0.5, hidden 48, 1x32x64
+    lines, the 36-character table) or classifier (`kind` "cls":
+    cls_mbv3small_synth.yml at 3x24x96) training config to `path`: batch
+    4, float32, CPU, one epoch with an eval after it, every
+    augmentation and cal_metric_during_train kept; return it."""
+    import os
+
+    import yaml
+
+    from pytorchocr_tpu_torch.utils.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = {"rec": "configs/rec/rec_vgg_bilstm_ctc_synth.yml",
+            "cls": "configs/cls/cls_mbv3small_synth.yml"}[kind]
+    cfg = load_config(os.path.join(repo, base))
+    cfg["Global"].update(use_gpu=False, use_amp=False, epoch_num=1, print_batch_step=1,
+                         save_model_dir=str(save_dir), eval_epoch_step=[0, 1],
+                         log_smooth_window=2)
+    shape = [1, 32, 64] if kind == "rec" else [3, 24, 96]
+    if kind == "rec":
+        cfg["Architecture"]["Backbone"]["scale"] = 0.5
+        cfg["Architecture"]["Neck"]["hidden_size"] = 48
+    for mode in ("Train", "Eval"):
+        for op in cfg[mode]["dataset"]["transforms"]:
+            name = next(iter(op))
+            if name in ("RecResizeImg", "ClsResizeImg"):
+                op[name]["image_shape"] = shape
+        cfg[mode]["loader"].update(batch_size_per_card=4, num_workers=1)
+    cfg["Train"]["dataset"]["label_file_list"] = [str(train_label)]
+    cfg["Eval"]["dataset"]["label_file_list"] = [str(eval_label)]
+    with open(path, "w") as f:
+        yaml.safe_dump(_plain(cfg), f, sort_keys=False)
+    return str(path)
