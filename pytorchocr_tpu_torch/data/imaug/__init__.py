@@ -2,21 +2,25 @@
 (`transform`, `create_operators`), one module per JAX module of
 pytorchocr_tpu/data/imaug/.
 
-Ported: the eval ops of the deploy entry points, the DB training chain of
-det_r18_db.yml and det_r18_db_synth.yml, and the CRNN and cls training
-chains (rec_vgg_bilstm_ctc*.yml, cls_mbv3small*.yml). Any other op of the
+Ported: the eval ops of the deploy entry points, the DB, PSE and PAN training
+chains (det_r18_db*.yml, det_r50_pse*.yml, det_r18_pan*.yml), and the CRNN
+and cls training chains (rec_vgg_bilstm_ctc*.yml, cls_mbv3small*.yml). Any
+other op of the
 JAX registry raises NotImplementedError naming the ROADMAP.md item that
 ports it.
 """
 
+from .color_jitter import ColorJitter
 from .fused_aug_crop import FusedDetAugCrop
 from .iaa_augment import IaaAugment
 from .label_ops import ClsLabelEncode, CTCLabelEncode, DetLabelEncode
 from .make_border_map import MakeBorderMap
+from .make_pan_gt import MakePanGt
+from .make_pse_gt import MakePseGt
 from .make_shrink_map import MakeShrinkMap
 from .operators import (DecodeImage, DetResizeForTest, KeepKeys, Normalize, NormalizeImage,
                         ToTensor)
-from .random_crop_data import EastRandomCropData
+from .random_crop_data import EastRandomCropData, RandomCropImgMask
 from .randaugment import RandAugment
 from .rec_img_aug import ClsResizeImg, RecAug, RecResizeImg
 
@@ -24,14 +28,12 @@ OPS = {op.__name__: op for op in (
     DecodeImage, ToTensor, Normalize, NormalizeImage, KeepKeys, DetResizeForTest,
     RecResizeImg, ClsResizeImg, DetLabelEncode, IaaAugment, EastRandomCropData,
     FusedDetAugCrop, MakeShrinkMap, MakeBorderMap, ClsLabelEncode, CTCLabelEncode, RecAug,
-    RandAugment,
+    RandAugment, ColorJitter, MakePseGt, MakePanGt, RandomCropImgMask,
 )}
 
 _LATER = dict(
-    {name: "A.7" for name in (  # PSE / PAN training and the other training ops
-        "RandomCropImgMask", "MakePseGt", "MakePanGt", "CopyPaste", "ColorJitter", "Resize",
-        "ToCHWImage",
-    )},
+    # training ops that no config of the repo uses
+    {name: "A.15" for name in ("CopyPaste", "Resize", "ToCHWImage")},
     AttnLabelEncode="A.11",
     RecResizeImgForTest="A.6", TableLabelEncode="A.13",
     TableBoxEncode="A.13", ResizeTableImage="A.13", PaddingTableImage="A.13",

@@ -1,8 +1,10 @@
-"""Text-avoiding random crops — the port's copy of
-pytorchocr_tpu/data/imaug/random_crop_data.py:1-165 (crop_area,
-is_poly_outside_rect, EastRandomCropData). The crop draws from np.random in
-the JAX op's order, so a seeded sample equals the JAX one.
+"""Random crops — the port's copy of pytorchocr_tpu/data/imaug/random_crop_data.py
+(crop_area, is_poly_outside_rect, EastRandomCropData :1-165;
+RandomCropImgMask :141-183). The crops draw from np.random and random in the
+JAX ops' order, so a seeded sample equals the JAX one.
 """
+
+import random
 
 import cv2
 import numpy as np
@@ -137,4 +139,52 @@ class EastRandomCropData:
         data["polys"] = np.array(text_polys_crop)
         data["ignore_tags"] = ignore_tags_crop
         data["texts"] = texts_crop
+        return data
+
+
+class RandomCropImgMask:
+    """PSE/PAN's crop after the GT makers, over `crop_keys`: with
+    probability 1 - p (and text in `main_key`) a window that holds text,
+    else anywhere. 3-d arrays are cut as CHW stacks when their smallest axis
+    is the first, as HWC when it is the last. From random_crop_data.py:141."""
+
+    def __init__(self, size, main_key, crop_keys, p=3 / 8, **kwargs):
+        self.size = size
+        self.main_key = main_key
+        self.crop_keys = crop_keys
+        self.p = p
+
+    def __call__(self, data):
+        image = data["image"]
+        h, w = image.shape[0:2]
+        th, tw = self.size
+        if w == tw and h == th:
+            return data
+
+        mask = data[self.main_key]
+        if np.max(mask) > 0 and random.random() > self.p:
+            # a window containing text
+            tl = np.min(np.where(mask > 0), axis=1) - (th, tw)
+            tl[tl < 0] = 0
+            br = np.max(np.where(mask > 0), axis=1) - (th, tw)
+            br[br < 0] = 0
+            br[0] = min(br[0], h - th)
+            br[1] = min(br[1], w - tw)
+            i = random.randint(tl[0], br[0]) if tl[0] < br[0] else 0
+            j = random.randint(tl[1], br[1]) if tl[1] < br[1] else 0
+        else:
+            i = random.randint(0, h - th) if h - th > 0 else 0
+            j = random.randint(0, w - tw) if w - tw > 0 else 0
+
+        for k in data:
+            if k in self.crop_keys:
+                arr = data[k]
+                if arr.ndim == 3:
+                    if np.argmin(arr.shape) == 0:  # CHW-like stack
+                        arr = arr[:, i : i + th, j : j + tw]
+                    elif np.argmin(arr.shape) == 2:  # HWC
+                        arr = arr[i : i + th, j : j + tw, :]
+                else:
+                    arr = arr[i : i + th, j : j + tw]
+                data[k] = arr
         return data

@@ -5,12 +5,15 @@ import copy
 
 from .cls_loss import ClsLoss
 from .det_db_loss import DBLoss
+from .det_pan_loss import PANLoss
+from .det_pse_loss import PSELoss
 from .rec_ctc_loss import CTCLoss
 
 __all__ = ["build_loss"]
 
-_SUPPORTED = {"DBLoss": DBLoss, "CTCLoss": CTCLoss, "ClsLoss": ClsLoss}
-_LATER = {"PSELoss": "A.7", "PANLoss": "A.7", "CombinedLoss": "A.12", "SLALoss": "A.13"}
+_SUPPORTED = {"DBLoss": DBLoss, "PSELoss": PSELoss, "PANLoss": PANLoss, "CTCLoss": CTCLoss,
+              "ClsLoss": ClsLoss}
+_LATER = {"CombinedLoss": "A.12", "SLALoss": "A.13"}
 
 
 def build_loss(config):

@@ -1,7 +1,7 @@
 """PAN head — port of pytorchocr_tpu/modeling/heads/det_pan_head.py.
 
 The PSE head's layers with 6 maps: text, kernel and a 4-dim embedding logit
-map at 1/4 of the page, NHWC float32. The PAN loss waits for ROADMAP.md A.7.
+map at 1/4 of the page, NHWC float32, which losses/det_pan_loss.py trains.
 """
 
 from .det_pse_head import PSEHead

@@ -2,8 +2,8 @@
 
 conv3x3 (bias) + BN + ReLU -> conv1x1 to `out_channels` kernel logit maps at
 the input's resolution (1/4 of the page). Input NCHW; the output keeps the
-JAX layout, NHWC float32: {"maps": (N, H, W, out_channels)}. The PSE loss
-waits for ROADMAP.md A.7.
+JAX layout, NHWC float32: {"maps": (N, H, W, out_channels)}, which
+losses/det_pse_loss.py trains.
 """
 
 from torch import nn

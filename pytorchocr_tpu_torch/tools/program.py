@@ -32,8 +32,8 @@ from ..utils.logging import get_logger, print_dict, process_rank
 from ..utils.save_load import save_model
 from ..utils.stats import TrainingStats
 
-SUPPORTED_ALGS = ["DB", "CRNN", "CLS"]
-_LATER_ALGS = {"PSE": "A.7", "PAN": "A.7", "STARNet": "A.11",
+SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "CLS"]
+_LATER_ALGS = {"STARNet": "A.11",
                "Distillation": "A.12", "SLANet": "A.13"}
 
 
@@ -323,6 +323,18 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
     return report
 
 
+def _first_rows(preds, n):
+    """The first `n` samples of a batch of predictions (a tensor, or a dict
+    or tuple of them)."""
+    if torch.is_tensor(preds):
+        return preds[:n]
+    if isinstance(preds, dict):
+        return {k: _first_rows(v, n) for k, v in preds.items()}
+    if isinstance(preds, (list, tuple)):
+        return type(preds)(_first_rows(v, n) for v in preds)
+    return preds
+
+
 def _slice_post(post_result, j):
     """One sample of a batched postprocess output as a length-1 batch. From
     program.py:771."""
@@ -342,7 +354,10 @@ def evaluate(eval_step, valid_dataloader, post_process_class, eval_class, model_
 
     Batch-size-1 loaders (det eval): samples are grouped by exact
     post-resize shape and forwarded in padded-pow2 batches of up to 16; the
-    postprocess of chunk k runs after chunk k+1's forward has been queued.
+    postprocess of chunk k runs after chunk k+1's forward has been queued,
+    on the chunk's own rows only: the padding rows, copies of its first
+    page, would repeat that page's front half (DB, PAN: K1; PSE: K1 and a
+    K2 fixpoint per kernel level) for nothing, which the JAX loop pays.
     On one CUDA stream the postprocess's device front half (K1) queues behind
     that forward, so what overlaps is the host: the next forward's launches
     and the previous chunk's host tail. The metric is fed per sample in input
@@ -379,7 +394,7 @@ def evaluate(eval_step, valid_dataloader, post_process_class, eval_class, model_
     pending = None
 
     def finish(chunk, preds, shapes):
-        post_result = post_process_class(preds, shapes)
+        post_result = post_process_class(_first_rows(preds, len(chunk)), shapes)
         for j, i in enumerate(chunk):
             per_sample[i] = _slice_post(post_result, j)
 
@@ -392,7 +407,7 @@ def evaluate(eval_step, valid_dataloader, post_process_class, eval_class, model_
         preds = eval_step(images)
         if pending is not None:
             finish(*pending)
-        pending = (chunk, preds, np.concatenate(shp + [shp[0]] * (bs - n)))
+        pending = (chunk, preds, np.concatenate(shp))
     if pending is not None:
         finish(*pending)
 

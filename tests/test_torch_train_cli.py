@@ -23,7 +23,7 @@ from pytorchocr_tpu_torch.deploy.infer_cls import Clser
 from pytorchocr_tpu_torch.deploy.infer_rec import Recer
 from pytorchocr_tpu_torch.tools import eval as eval_cli
 from pytorchocr_tpu_torch.tools import program
-from torch_port_util import tiny_db_config, tiny_rec_cls_config
+from torch_port_util import tiny_det_config, tiny_rec_cls_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = (
@@ -52,7 +52,8 @@ def trained(tmp_path_factory):
 
     tmp = tmp_path_factory.mktemp("cli")
     label = synth.make_det_dataset(str(tmp / "data"), n=4, size=160, seed=3)
-    cfg = tiny_db_config(tmp / "cfg.yml", label, label, tmp / "out")
+    cfg = tiny_det_config(tmp / "cfg.yml", "configs/det/det_r18_db_synth.yml", label, label,
+                          tmp / "out")
     report, log = _run("pytorchocr_tpu_torch.tools.train", "-c", cfg,
                        "-o", "Global.use_gpu=False", "Global.seed=5")
     return dict(tmp=tmp, cfg=cfg, report=report, log=log)

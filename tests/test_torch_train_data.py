@@ -27,6 +27,7 @@ from pytorchocr_tpu_torch.data import build_dataloader, create_operators, transf
 from pytorchocr_tpu_torch.utils import geometry
 from pytorchocr_tpu_torch.utils.logging import get_logger
 from pytorchocr_tpu.utils import geometry as jax_geometry
+from torch_port_util import same_native_path
 
 GLOBAL = {"distributed": False}
 
@@ -107,6 +108,7 @@ GT_OPS = [{"MakeBorderMap": {"shrink_ratio": 0.45, "thresh_min": 0.3, "thresh_ma
 def test_augment_crop_and_gt_maps_match_jax(chain, seed):
     """The augment + crop ops from the same seeds give the JAX op's image,
     polygons, tags and texts; the GT makers then give its maps, exactly."""
+    same_native_path()
     got, want = _encoded(seed % 2)
     ops = AUG_CHAINS[chain] + GT_OPS
     got = _seeded(lambda: transform(got, create_operators(ops, GLOBAL)), seed)
@@ -122,6 +124,7 @@ def test_make_border_map_paths_match_jax(native, monkeypatch):
     from pytorchocr_tpu import native as jax_native
     from pytorchocr_tpu_torch import native as port_native
 
+    same_native_path()
     if not native:
         monkeypatch.setattr(port_native, "native_available", lambda: False)
         monkeypatch.setattr(jax_native, "native_available", lambda: False)
@@ -200,6 +203,7 @@ def test_loader_first_two_batches_match_jax(tmp_path):
     the epoch order (RandomState(seed + epoch)), the augmentations drawn
     from the globally seeded generators and the collation give the JAX
     loader's first two batches, field for field."""
+    same_native_path()
     cfg = _loader_config(tmp_path)
     logger = get_logger()
     batches = {}
@@ -236,3 +240,48 @@ def test_native_library_builds_once_under_concurrent_first_use(tmp_path, monkeyp
     for t in threads:
         t.join()
     assert seen == [True] * 6 and len(list(tmp_path.glob("libocrgeom_*.so"))) == 1
+
+
+RACE = """
+import importlib.util, json, sys, time
+sys.path.insert(0, sys.argv[3])
+from torch_port_util import same_native_path
+spec = importlib.util.spec_from_file_location("native_copy", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+time.sleep(max(0.0, float(sys.argv[2]) - time.time()))
+first = bool(mod._load())
+print(json.dumps({"first": first, "after": bool(same_native_path(mod))}))
+"""
+
+
+def test_same_native_path_steadies_the_jax_library_first_build_race(tmp_path):
+    """Six processes make the first use of a copy of the JAX package's
+    native library (pytorchocr_tpu/native/, built in place with no lock) at
+    once: some may load the file another is still linking and get False;
+    through tests/torch_port_util.py:same_native_path every one of them ends
+    with the library loaded."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import time
+
+    import pytorchocr_tpu.native as jax_native
+
+    if not shutil.which("g++"):
+        pytest.skip("no g++: both packages take their numpy paths")
+    src = os.path.dirname(jax_native.__file__)
+    copy_dir = tmp_path / "native"
+    copy_dir.mkdir()
+    for name in ("__init__.py", "geometry_kernels.cpp"):
+        shutil.copy(os.path.join(src, name), copy_dir / name)
+    tests = os.path.dirname(os.path.abspath(__file__))
+    start = time.time() + 8.0  # after every process has imported torch
+    procs = [subprocess.Popen([sys.executable, "-c", RACE, str(copy_dir / "__init__.py"),
+                               repr(start), tests], stdout=subprocess.PIPE, text=True)
+             for _ in range(6)]
+    out = [json.loads(p.communicate(timeout=180)[0].strip().splitlines()[-1]) for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert [o["after"] for o in out] == [True] * 6, out
+    assert (copy_dir / "libocrgeom.so").exists()

@@ -43,7 +43,7 @@ from pytorchocr_tpu_torch.utils.config import load_config
 from pytorchocr_tpu_torch.utils.logging import get_logger
 from pytorchocr_tpu_torch.utils.save_load import load_model, save_model
 from pytorchocr_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
-from torch_port_util import tiny_db_config
+from torch_port_util import same_native_path, tiny_det_config
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "tools"))
@@ -63,7 +63,8 @@ def setup(tmp_path_factory):
     label = synth.make_det_dataset(str(tmp / "data"), n=6, size=160, seed=0)
     eval_label = tmp / "eval_label.txt"
     eval_label.write_text("".join(open(label).readlines()[:3]))
-    cfg = load_config(tiny_db_config(tmp / "cfg.yml", label, eval_label, tmp / "out"))
+    cfg = load_config(tiny_det_config(tmp / "cfg.yml", "configs/det/det_r18_db_synth.yml",
+                                      label, eval_label, tmp / "out"))
     cfg["Global"]["distributed"] = False
     loader, _ = build_dataloader(cfg, "Train", get_logger())
     random.seed(1)
@@ -188,6 +189,7 @@ def test_evaluate_matches_jax_evaluate(setup):
     from pytorchocr_tpu.trainer import make_eval_step as jax_make_eval_step
 
     s = setup
+    same_native_path()
     cfg, loader, n_boxes = _self_labelled_eval(s, s["tmp"])
     assert n_boxes >= 3
     model = build_model(cfg["Architecture"])
@@ -222,6 +224,7 @@ def test_det_metric_matches_jax(seed):
     from pytorchocr_tpu.metrics import build_metric as jax_build_metric
     from pytorchocr_tpu.metrics.eval_det_iou import DetectionIoUEvaluator as JaxEvaluator
 
+    same_native_path()
     rng = np.random.RandomState(seed)
     got_m, want_m = build_metric({"name": "DetMetric"}), jax_build_metric({"name": "DetMetric"})
     for page in range(4):

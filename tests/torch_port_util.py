@@ -3,6 +3,8 @@
 jax is imported inside the bridge helpers only: the card's machine runs the
 `cuda`-marked tests of the files that import this one."""
 
+import shutil
+import time
 from functools import partial
 
 import numpy as np
@@ -27,6 +29,61 @@ def cuda_device():
 
 
 DEEP = dict(atol=2e-3, rtol=1e-3)  # deep float32 stacks, XLA:CPU against oneDNN
+
+
+def same_native_path(jax_native=None, timeout=60.0, poll=0.5):
+    """Call before comparing the port with a JAX path that may run the JAX
+    package's native library (MakeBorderMap, the det metric's IoU matrix).
+
+    That library (pytorchocr_tpu/native/__init__.py) is built in place on
+    first use, with no lock: a process that starts while another links it
+    loads a partial file, and caches "unavailable" for its life, so its JAX
+    ops take their float64 numpy paths while the port's take the native
+    float32 ones, and exact comparisons differ by ~2e-5. Where g++ exists and
+    the load failed, this forgets that result and retries every `poll`
+    seconds, up to `timeout`, while the other build ends. Then it asserts
+    that both packages are on the same path. Returns the loaded library or
+    False. `jax_native` defaults to pytorchocr_tpu.native."""
+    from pytorchocr_tpu_torch import native as port_native
+
+    if jax_native is None:
+        from pytorchocr_tpu import native as jax_native
+    lib = jax_native._load()
+    if not lib and shutil.which("g++"):
+        deadline = time.monotonic() + timeout
+        while not lib and time.monotonic() < deadline:
+            time.sleep(poll)
+            jax_native._lib = None
+            lib = jax_native._load()
+    assert bool(lib) == port_native.native_available(), (
+        "the JAX package's native library is %s and the port's is %s: the JAX library's "
+        "in-place first build raced with another process's (same_native_path's docstring), "
+        "so the two would compare a native path with a numpy one"
+        % (("loaded", "not loaded") if lib else ("not loaded", "loaded")))
+    return lib
+
+
+def jax_selections(loss_name, maps, labels, kernel_sample_mask="pred"):
+    """The boolean maps the JAX PSELoss / PANLoss take from thresholds on
+    the predictions `maps` (NHWC logits at 1/4), as torch tensors named as
+    the port's `selections` names them: the OHEM selection, the
+    kernel-sample mask, and the IoU logs' text and kernel binarisations."""
+    import jax
+    import jax.numpy as jnp
+
+    from pytorchocr_tpu.losses import basic
+    from pytorchocr_tpu.modeling.common import resize_nearest
+
+    up = resize_nearest(jnp.asarray(maps), 4)
+    texts = up[..., 0]
+    gt_texts = jnp.asarray(labels[1])
+    masks = jnp.asarray(labels[3 if loss_name == "PSELoss" else 4])
+    sel = {"ohem": basic.ohem_batch(texts, gt_texts, masks) > 0,
+           "kernel_mask": (gt_texts if kernel_sample_mask == "gt"
+                           else jax.nn.sigmoid(texts) > 0.5) * masks > 0,
+           "text>0": texts > 0,
+           "kernel>0": up[..., -1 if loss_name == "PSELoss" else 1] > 0}
+    return {k: torch.from_numpy(np.array(v)) for k, v in sel.items()}
 
 
 def randomize(tree, rng):
@@ -159,11 +216,14 @@ def _plain(obj):
     return obj
 
 
-def tiny_db_config(path, train_label, eval_label, save_dir, size=64, fpn=32, batch=2,
-                   base="configs/det/det_r18_db_synth.yml"):
-    """Write a small-shape copy of a DB training config (ResNet-18 at full
-    depth, FPN `fpn`, `size`x`size` crops, batch `batch`, float32, CPU, one
-    epoch, eval after it) to `path` and return it."""
+def tiny_det_config(path, base, train_label, eval_label, save_dir, size=64, neck=32, batch=2,
+                    layers=None, post=None):
+    """Write a small-shape copy of a detection training config `base` (DB,
+    PSE or PAN) to `path` and return it: its backbone at full depth (or
+    ResNet-`layers`), the neck's and the head's widths `neck`, `size`x`size`
+    crops (the PSE/PAN GT makers' upscale target too), batch `batch`,
+    float32, CPU, one epoch with an eval after it at `size` on the short
+    side; `post` updates the PostProcess section."""
     import os
 
     import yaml
@@ -175,11 +235,19 @@ def tiny_db_config(path, train_label, eval_label, save_dir, size=64, fpn=32, bat
     g = cfg["Global"]
     g.update(use_gpu=False, use_amp=False, epoch_num=1, print_batch_step=1,
              save_model_dir=str(save_dir), eval_epoch_step=[0, 1], log_smooth_window=2)
-    cfg["Architecture"]["Neck"]["out_channels"] = fpn
+    arch = cfg["Architecture"]
+    arch["Neck"]["out_channels"] = neck
+    if "hidden_dim" in arch["Head"]:
+        arch["Head"]["hidden_dim"] = neck
+    if layers is not None:
+        arch["Backbone"]["layers"] = layers
+    cfg["PostProcess"].update(post or {})
     for op in cfg["Train"]["dataset"]["transforms"]:
         name = next(iter(op))
-        if name in ("FusedDetAugCrop", "EastRandomCropData"):
+        if name in ("FusedDetAugCrop", "EastRandomCropData", "RandomCropImgMask"):
             op[name]["size"] = [size, size]
+        elif name in ("MakePseGt", "MakePanGt"):
+            op[name]["size"] = size
     for op in cfg["Eval"]["dataset"]["transforms"]:
         if "DetResizeForTest" in op:
             op["DetResizeForTest"] = {"limit_side_len": size, "limit_type": "min"}
@@ -190,7 +258,6 @@ def tiny_db_config(path, train_label, eval_label, save_dir, size=64, fpn=32, bat
     with open(path, "w") as f:
         yaml.safe_dump(_plain(cfg), f, sort_keys=False)
     return str(path)
-
 
 
 def tiny_rec_cls_config(path, kind, train_label, eval_label, save_dir):
