@@ -76,7 +76,11 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      640x640 pages drawn with cv2: one float32 step (TF32 off, bs 2) on the
      card against the same step in float64 on the CPU, from the same seeded
      weights and batch (loss and terms, every gradient, the parameters after
-     the update, the BN running statistics); a checkpoint round trip (save `latest` after step 1, load
+     the update, the BN running statistics; the float64 step, and the CPU
+     float32 step whose errors set the floors, take the card's side of every
+     relu, relu6 and max-pool kink and of the loss's abs, clamp and
+     comparisons, the elements that would have gone the other way counted:
+     Branches); a checkpoint round trip (save `latest` after step 1, load
      it into a fresh model and optimizer, step 2 bit for bit the
      uninterrupted one, cuDNN deterministic); then 200 steps of bs 16 in
      bf16 through tools.train.run, the entry point of `python -m
@@ -90,7 +94,8 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      1x32x320 gray, RecAug, amsgrad + WarmupPolyLR, bf16, 8 loader threads,
      cal_metric_during_train) on 2,560 training and 512 eval lines drawn with
      cv2's Hershey fonts (1-25 lowercase alphanumerics): a float32 step (bs
-     8) against float64 as in phase 11, with the LSTM's gradients reported
+     8) against float64 as in phase 11 (the forward's pieces taken, not
+     the loss's), with the LSTM's gradients reported
      and a TF32-on control that must fail the limits; the checkpoint round
      trip bit for bit; the convergence check (one fixed batch of 128 lines,
      no augmentation, Adam at 3e-3: >= 120 read back within 3,000 steps)
@@ -103,7 +108,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
  13. direction-classifier training, cls_mbv3small_synth.yml as published
      (MobileNetV3 small x0.35, bs 128 at 3x48x192, RecAug without TIA and
      RandAugment) on drawn lines of 5-25 characters, half turned by 180
-     degrees: the float32 step against float64, 500 steps through
+     degrees: the float32 step against float64, 800 steps through
      tools.train.run whose eval accuracy must reach 0.8, tools.eval.run
      equal to it, Clser (deploy.infer_cls) on best_accuracy giving the
      eval's labels, the same rates and profiler. Phases 12 and 13 add no
@@ -112,9 +117,11 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      PSEHead 256 -> 7, PSELoss with OHEM, bs 8 at 640x640, ColorJitter,
      IaaAugment, MakePseGt, RandomCropImgMask, bf16, 8 loader threads) on
      phase 11's drawn pages: the float32 step against float64 at bs 2 and
-     320x320 (the CPU's float64 ResNet-50 step kept short), with the pixels
-     that the two put on the other side of a loss threshold counted and the
-     IoU logs held to the card's own binarisation, and its TF32-on control;
+     320x320 (the CPU's float64 ResNet-50 step kept short; the forward's
+     pieces taken as in phase 11), with the pixels that the two put on the
+     other side of a loss threshold counted, the float64 loss summing over
+     the card's selections and the IoU logs held to the card's own
+     binarisation, and its TF32-on control;
      the checkpoint round trip; 96 steps through tools.train.run, whose mean
      loss over the last 20 steps must fall under 0.5 of the first 20's, with
      the rates, shares and peak memory; the bucketed evaluate after the last
@@ -1996,10 +2003,10 @@ def first_batches(config, n, bs, label=None):
     return list(loader)[:n]
 
 
-def train_parts(config, device, amp, schedule=None):
+def train_parts(config, device, amp, schedule=None, wrap_loss=None):
     """A model with the trainer's seeded init, its optimizer (the LR
     schedule over `schedule`, (epochs, steps an epoch); by default phase
-    11's) and train step."""
+    11's) and train step; `wrap_loss` wraps the step's loss."""
     from pytorchocr_tpu_torch.losses import build_loss
     from pytorchocr_tpu_torch.optimizer import build_optimizer
     from pytorchocr_tpu_torch.tools.train import build_train_model
@@ -2011,19 +2018,192 @@ def train_parts(config, device, amp, schedule=None):
     opt, _ = build_optimizer(config["Optimizer"], epochs=schedule[0],
                              step_each_epoch=schedule[1], parameters=model.parameters())
     spec = config["Global"].get("_device_normalize_spec", {}).get("Train")
-    step = make_train_step(model, build_loss(config["Loss"]), opt,
+    loss = build_loss(config["Loss"])
+    step = make_train_step(model, wrap_loss(loss) if wrap_loss else loss, opt,
                            input_transform=build_input_transform(spec), amp=amp)
     return model, opt, step
 
 
-def f64_reference_step(config, batch, schedule=None, select=None):
+class Branches:
+    """Which piece of each piecewise-linear function every element took in
+    one run's model forward (relu's two; relu6's and hardtanh's three, so
+    hard_swish's and hard_sigmoid's at -3 and 3; max_pool2d's argmax) and,
+    where the loss is wrapped too, in its loss (abs's sign, clamp's three
+    pieces, and the result of every comparison: OHEM's cut and the bisection
+    that finds it), recorded there (`wrap` / `wrap_loss` with replay False)
+    and taken again in another run (replay True). Where a value lies within
+    rounding of a kink or a cut, or two pooled values within rounding of
+    each other, a float32 and a float64 run take different pieces, whose
+    derivatives differ by a whole unit: one such element moves the
+    gradients of the layers under it by far more than rounding. A float64
+    step that takes the card's pieces differs from the card's step by
+    rounding alone. `flips` counts, by function, the elements whose own
+    piece in the replaying run differs from the recorded one (pooled ties
+    left out: either argmax gives the same value)."""
+
+    KINKS = {"relu": (0.0, None), "relu6": (0.0, 6.0), "hardtanh": (-1.0, 1.0)}
+    POOLS = ("_max_pool2d", "max_pool2d", "max_pool2d_with_indices")
+    POOL_ARGS = ("input", "kernel_size", "stride", "padding", "dilation", "ceil_mode",
+                 "return_indices")
+    CLAMPS = ("clamp", "clip")
+    COMPARISONS = ("__gt__", "__ge__", "__lt__", "__le__", "gt", "ge", "lt", "le", "greater",
+                   "greater_equal", "less", "less_equal")
+
+    def __init__(self):
+        self.records, self.pos, self.flips = {}, {}, {}
+
+    def wrap(self, model, replay):
+        """Record or replay the pieces of `model`'s forward."""
+        model.forward = self._wrapped(model.forward, "model", replay)
+        return model
+
+    def wrap_loss(self, loss, replay):
+        """`loss` as a function whose pieces are recorded or replayed."""
+        return self._wrapped(loss, "loss", replay)
+
+    def _wrapped(self, fn, role, replay):
+        from torch.overrides import TorchFunctionMode
+
+        state = self
+        loss = role == "loss"
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                name = getattr(func, "__name__", "")
+                kwargs = kwargs or {}
+                if name in Branches.KINKS:
+                    return state._kink(role, name, func, args, kwargs, replay)
+                if name in Branches.POOLS:
+                    return state._pool(role, func, args, kwargs, replay)
+                if loss and name in Branches.CLAMPS + ("abs",):
+                    return state._kink(role, name, func, args, kwargs, replay)
+                if loss and name in Branches.COMPARISONS:
+                    return state._compare(role, func, args, kwargs, replay)
+                if name.rstrip("_") in Branches.KINKS or (
+                        loss and name.rstrip("_") in Branches.CLAMPS + ("abs",)):
+                    raise NotImplementedError("Branches: in-place %s" % name)
+                return func(*args, **kwargs)
+
+        def wrapped(*args, **kwargs):
+            if not replay:
+                self.records[role] = []
+            self.pos[role] = 0
+            with Mode():
+                out = fn(*args, **kwargs)
+            if self.pos[role] != (len(self.records[role]) if replay else 0):
+                raise RuntimeError("Branches: the replaying %s made %d of the %d recorded calls"
+                                   % (role, self.pos[role], len(self.records[role])))
+            return out
+
+        return wrapped
+
+    def _next(self, role, name, shape):
+        i, records = self.pos[role], self.records[role]
+        if i >= len(records) or records[i][0] != name or tuple(records[i][1].shape) != tuple(shape):
+            raise RuntimeError("Branches: %s call %d is %s %s, not what was recorded" % (
+                role, i, name, tuple(shape)))
+        self.pos[role] += 1
+        return records[i][1]
+
+    def _count(self, name, n):
+        self.flips[name] = self.flips.get(name, 0) + int(n)
+
+    def _kink(self, role, name, func, args, kwargs, replay):
+        """relu / relu6 / hardtanh / clamp: piece 0 below the low end, 1
+        between (the gradient passes: open at the ends for the first three,
+        closed for clamp, as their backward passes it), 2 above; abs: the
+        sign (sgn(0) = 0 is its gradient at 0)."""
+        import torch
+
+        if name == "hardtanh":
+            names = ("input", "min_val", "max_val", "inplace")
+        elif name in Branches.CLAMPS:
+            names = ("input", "min", "max")
+        else:
+            names = ("input", "inplace")
+        v = dict(zip(names, args), **kwargs)
+        if v.get("inplace"):
+            raise NotImplementedError("Branches: in-place %s" % name)
+        x = v["input"]
+        lo, hi = Branches.KINKS.get(name, (None, None))
+        lo, hi = v.get("min_val", v.get("min", lo)), v.get("max_val", v.get("max", hi))
+        if any(torch.is_tensor(t) for t in (lo, hi)):
+            raise NotImplementedError("Branches: %s with tensor bounds" % name)
+        with torch.no_grad():
+            if name == "abs":
+                piece = torch.sign(x).to(torch.int8)
+            elif name in Branches.CLAMPS:
+                piece = torch.ones_like(x, dtype=torch.uint8)
+                if lo is not None:
+                    piece -= (x < lo).to(torch.uint8)
+                if hi is not None:
+                    piece += (x > hi).to(torch.uint8)
+            else:
+                piece = (x > lo).to(torch.uint8)
+                if hi is not None:
+                    piece += (x >= hi).to(torch.uint8)
+        if not replay:
+            self.records[role].append((name, piece))
+            return func(*args, **kwargs)
+        # the output keeps x's strides, as the function's own does (a conv
+        # after it takes another path, and rounds otherwise, on other strides)
+        card = torch.empty_like(piece).copy_(self._next(role, name, x.shape))
+        self._count(name, (piece != card).sum())
+        if name == "abs":
+            return x * card.to(x.dtype)
+        out = x if lo is None else torch.where(card == 0, torch.tensor(lo, dtype=x.dtype), x)
+        if hi is not None:
+            out = torch.where(card == 2, torch.tensor(hi, dtype=x.dtype), out)
+        return out
+
+    def _pool(self, role, func, args, kwargs, replay):
+        import torch
+        import torch.nn.functional as F
+
+        v = dict(zip(Branches.POOL_ARGS, args), **kwargs)
+        x = v["input"]
+        pool = dict(kernel_size=v["kernel_size"], stride=v.get("stride") or v["kernel_size"],
+                    padding=v.get("padding", 0), dilation=v.get("dilation", 1),
+                    ceil_mode=v.get("ceil_mode", False))
+        if not replay:
+            with torch.no_grad():
+                _, idx = F.max_pool2d_with_indices(x, **pool)
+            self.records[role].append(("max_pool2d", idx))
+            return func(*args, **kwargs)
+        own, own_idx = F.max_pool2d_with_indices(x, **pool)
+        idx = self._next(role, "max_pool2d", own.shape).to(x.device)
+        out = torch.empty_like(own).copy_(x.flatten(2).gather(2, idx.flatten(2)).view_as(own))
+        with torch.no_grad():
+            self._count("max_pool2d", ((idx != own_idx) & (out != own)).sum())
+        return (out, idx) if v.get("return_indices") else out
+
+    def _compare(self, role, func, args, kwargs, replay):
+        import torch
+
+        out = func(*args, **kwargs)
+        if not torch.is_tensor(out):
+            return out
+        if not replay:
+            self.records[role].append(("comparison", out))
+            return out
+        card = torch.empty_like(out).copy_(self._next(role, "comparison", out.shape))
+        self._count("comparison", (out != card).sum())
+        return card
+
+    def report(self):
+        return ", ".join("%s %d" % kv for kv in sorted(self.flips.items())) or "none recorded"
+
+
+def f64_reference_step(config, batch, schedule=None, select=None, branches=None,
+                       loss_pieces=False):
     """The same train step on the CPU in float64 (model, input, labels and
     loss; the DB head's sigmoids stay float32, as the module computes them):
     the reference the card's float32 step is held to. The CPU's own float32
     step lands several times further from it than the card's (phase 11
     reports both), so the CPU's float32 is no reference. `select` replaces
     the loss's `select` (PSE/PAN: the masks it thresholds out of the
-    predictions)."""
+    predictions); `branches` (a recorded Branches) makes its forward, and
+    with `loss_pieces` its loss, take the card's pieces."""
     import torch
 
     from pytorchocr_tpu_torch.losses import build_loss
@@ -2032,6 +2212,8 @@ def f64_reference_step(config, batch, schedule=None, select=None):
     cpu = torch.device("cpu")
     model, opt, _ = train_parts(config, cpu, amp=False, schedule=schedule)
     model.double().train()
+    if branches is not None:
+        branches.wrap(model, replay=True)
     b = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
               for x in batch_to_device(batch, cpu))
     transform = build_input_transform(
@@ -2041,6 +2223,8 @@ def f64_reference_step(config, batch, schedule=None, select=None):
     loss = build_loss(config["Loss"])
     if select is not None:
         loss.select = select
+    if loss_pieces:
+        loss = branches.wrap_loss(loss, replay=True)
     losses = loss(float_preds(preds, torch.float64), b)
     opt.zero_grad(set_to_none=True)
     losses["loss"].backward()
@@ -2050,10 +2234,14 @@ def f64_reference_step(config, batch, schedule=None, select=None):
     return model, opt, {k: float(v.detach()) for k, v in losses.items()}, grads
 
 
-def card_step(config, dev, batch, tf32, schedule=None):
-    """One float32 train step through the trainer's step on the card from
-    the seeded weights, TF32 on or off: (losses, gradients, state_dict after
-    the update, parameters before it), on the CPU in float64."""
+def card_step(config, dev, batch, tf32, schedule=None, branches=None, replay=False,
+              loss_pieces=False):
+    """One float32 train step through the trainer's step on `dev` from the
+    seeded weights, TF32 on or off: (losses, gradients, state_dict after the
+    update, parameters before it), on the CPU in float64. `branches` records
+    the pieces of the piecewise-linear functions that its forward (and with
+    `loss_pieces` its loss) takes (Branches), or with `replay` makes it take
+    the recorded ones."""
     import torch
 
     from pytorchocr_tpu_torch.trainer import batch_to_device
@@ -2061,7 +2249,11 @@ def card_step(config, dev, batch, tf32, schedule=None):
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        model, _, step = train_parts(config, dev, amp=False, schedule=schedule)
+        wrap_loss = (lambda loss: branches.wrap_loss(loss, replay)) if loss_pieces else None
+        model, _, step = train_parts(config, dev, amp=False, schedule=schedule,
+                                     wrap_loss=wrap_loss)
+        if branches is not None:
+            branches.wrap(model, replay)
         p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
         losses = {k: float(v) for k, v in step(batch_to_device(batch, dev)).items()}
     finally:
@@ -2168,7 +2360,8 @@ def held_step(step, ref, floor, lr, skip=frozenset(), focus=None, rounding=False
 
 def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE, TRAIN_SIZE),
                      tag="train-f32", schedule=None, zero_grad=db_zero_grad_leaves,
-                     focus=None, card_floors=False, explained=None, deep=False, select=None):
+                     focus=None, card_floors=False, explained=None, deep=False, select=None,
+                     loss_pieces=False):
     """One float32 train step (TF32 off) through the trainer's step on the
     card against the float64 reference on the CPU (f64_reference_step), from
     the same seeded weights and batch: the loss and its terms (rtol 1e-4),
@@ -2194,32 +2387,39 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
     relative L2 in that leaf (ResNet-50's BN gradients at bs 2 carry more
     float32 rounding than that limit, on the CPU as on the card), and its
     floor DEEP_FLOOR_X times its CPU float32 error, and held_step gets
-    `rounding`. `select` goes to the float64 step (f64_reference_step)."""
+    `rounding`. `select` goes to the float64 step (f64_reference_step).
+    The float64 step and the CPU float32 step (the floors) take the pieces
+    of the piecewise-linear functions that the card's TF32-off forward took
+    (Branches), and with `loss_pieces` those of its loss and its
+    comparisons (phase 11: DB's OHEM cut, its L1's sign, its BCE's clamp);
+    the elements where they would have taken another piece are counted and
+    reported."""
     import torch
 
-    from pytorchocr_tpu_torch.trainer import batch_to_device
-
     name = tag.split("-")[0]
-    m_ref, opt, l_ref, g_ref = f64_reference_step(config, batch, schedule, select)
+    branches = Branches()
+    step = card_step(config, dev, batch, tf32=False, schedule=schedule, branches=branches,
+                     loss_pieces=loss_pieces)
+    m_ref, opt, l_ref, g_ref = f64_reference_step(config, batch, schedule, select, branches,
+                                                  loss_pieces)
     ref = l_ref, g_ref, m_ref.state_dict()
+    f64_flips, branches.flips = branches.report(), {}
     skip = zero_grad(g_ref)
-    cpu_model, _, cpu_step = train_parts(config, torch.device("cpu"), amp=False,
-                                         schedule=schedule)
-    l_cpu = float(cpu_step(batch_to_device(batch, torch.device("cpu")))["loss"])
-    floor = {k: float((p.grad.double() - g_ref[k]).abs().max())
-             for k, p in cpu_model.named_parameters() if p.grad is not None}
-    rel_cpu = {k: float((p.grad.double() - g_ref[k]).norm() / g_ref[k].norm())
-               for k, p in cpu_model.named_parameters()
-               if p.grad is not None and k not in skip}
+    l_cpu, g_cpu32 = card_step(config, torch.device("cpu"), batch, tf32=False,
+                               schedule=schedule, branches=branches, replay=True,
+                               loss_pieces=loss_pieces)[:2]
+    l_cpu = l_cpu["loss"]
+    floor = {k: float((g - g_ref[k]).abs().max()) for k, g in g_cpu32.items()}
+    rel_cpu = {k: float((g - g_ref[k]).norm() / g_ref[k].norm())
+               for k, g in g_cpu32.items() if k not in skip}
     g_cpu = max(rel_cpu.values())
     limit = {k: max(GRAD_LIMIT, rel_cpu[k]) if deep else GRAD_LIMIT for k in rel_cpu}
-    del cpu_model, cpu_step
+    del g_cpu32
     lr = float(opt.lr_schedule(0))
     if card_floors:
         floor = {k: max(f, ELEM_SCALE * float(g_ref[k].abs().max())) for k, f in floor.items()}
     if deep:
         floor = {k: DEEP_FLOOR_X * f for k, f in floor.items()}
-    step = card_step(config, dev, batch, tf32=False, schedule=schedule)
     got = held_step(step, ref, floor, lr, skip, focus, rounding=deep)
     control_step = card_step(config, dev, batch, tf32=True, schedule=schedule)
     control = held_step(control_step, ref, floor, lr, skip, focus, rounding=deep)
@@ -2285,6 +2485,11 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
         "float32 step (a report): loss %.6f, gradients worst %.2e relative L2"
         % (control["value"], control["loss"][0], control["grad"][0], control["grad"][1],
            control["elem"][0], control["outside"], control["bn"], l_cpu, g_cpu))
+    got["pieces"] = "float64 %s; CPU float32 %s" % (f64_flips, branches.report())
+    say(tag, "elements on another piece of a piecewise-linear function (or another side of "
+        "a comparison) of the %s than on the card with TF32 off, by function (the float64 "
+        "and CPU float32 steps take the card's): %s"
+        % ("forward and the loss" if loss_pieces else "forward", got["pieces"]))
     if explained:
         say(tag, "the binarisation logs, on the card / on the card's binarised maps recomputed "
             "/ in float64: %s" % ", ".join("%s %.7f / %.7f / %.7f" % (
@@ -2469,7 +2674,7 @@ def phase_train(dev, card, tmp):
     say("train-loader", "host ms per sample, one thread: %s (%.1f polygons a sample after the "
         "crop; the native border map)" % (ops_ms, polys))
     batches = first_batches(config, 2, 2)
-    compare_f32_step(config, dev, batches[0], card)
+    compare_f32_step(config, dev, batches[0], card, loss_pieces=True)
     checkpoint_round_trip(config, dev, batches, tmp)
 
     # the entry point, as `python -m pytorchocr_tpu_torch.tools.train` runs it;
@@ -2522,7 +2727,7 @@ REC_TRAIN_CFG = os.path.join(REPO, "configs", "rec", "rec_vgg_bilstm_ctc_synth.y
 CLS_TRAIN_CFG = os.path.join(REPO, "configs", "cls", "cls_mbv3small_synth.yml")
 # phases 12 and 13: drawn lines (train, eval), batch, steps of tools.train.run
 LINES_TRAIN, LINES_EVAL, LINES_BS = 2560, 512, 128
-LINES_STEPS = {"rec": 100, "cls": 500}
+LINES_STEPS = {"rec": 100, "cls": 800}
 F32_BS = 8  # the float32-against-float64 step and the checkpoint round trip
 # phase 12's convergence check, written down in PERF.md before the first run
 # that checked it: one fixed batch of 128 drawn lines, no augmentation, bf16,
@@ -2535,7 +2740,10 @@ OVERFIT_OPTIMIZER = {"base_lr": 3e-3, "optim": {"name": "Adam"}}
 # checked it: the eval accuracy after LINES_STEPS["cls"] steps of the config as
 # published. Fewer steps did not do (400: eval acc 0.5, one class for all):
 # MobileNetV3's BN statistics (flax momentum 0.99, as in the JAX package)
-# still hold 0.99^400 = 1.8% of their initial variance after 400 steps
+# still hold 0.99^400 = 1.8% of their initial variance after 400 steps. At 500
+# steps six runs read 0.7852-0.9453 (the loader's 8 threads draw other batches
+# in every run) and one failed, with the loss still falling (0.36 to 0.25 over
+# the last 200 steps); the run now takes 800 (40 epochs), the check unchanged
 CLS_MIN_ACC = 0.8
 ALNUM = "0123456789abcdefghijklmnopqrstuvwxyz"
 HERSHEY = ("FONT_HERSHEY_SIMPLEX", "FONT_HERSHEY_DUPLEX", "FONT_HERSHEY_COMPLEX",
