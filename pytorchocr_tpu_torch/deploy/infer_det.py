@@ -19,6 +19,7 @@ from ..data import create_operators, transform
 from ..postprocess import build_post_process
 from ..utils.config import load_config
 from ..utils.utility import sort_boxes
+from ..ops import quant as _quant
 from .common import build_runner, padded_pow2_batch
 
 MAX_BS = 16
@@ -92,6 +93,9 @@ class Deter:
         self.det_ops = create_operators(det_transforms, det_cfg["Global"])
         self.runner = build_runner(det_cfg, det_ckpt, device, mean=mean, std=std,
                                    dtype=dtype)
+        reason = _quant.unsupported(self.runner.model) if quant else None
+        if reason:
+            raise NotImplementedError(reason)
 
     def _preprocess(self, img):
         """A path or an already-decoded BGR array -> (1, H, W, C) image and

@@ -1,9 +1,9 @@
-"""BaseModel: Backbone -> Neck -> Head — port of
+"""BaseModel: Transform -> Backbone -> Neck -> Head — port of
 pytorchocr_tpu/modeling/architectures/base_model.py.
 
-`build_base_model` runs the same channel-inference chain as the JAX version.
-The input is NCHW. Not ported: the Transform stage (STAR-Net TPS, ROADMAP.md
-A.11).
+`build_base_model` runs the same channel-inference chain as the JAX version
+(:55-60): `Architecture.in_channels` feeds the transform (STAR-Net's TPS),
+whose `out_channels` feed the backbone. The input is NCHW.
 """
 
 import copy
@@ -13,13 +13,15 @@ from torch import nn
 from ..backbones import build_backbone
 from ..heads import build_head
 from ..necks import build_neck, neck_out_channels
+from ..transforms import build_transform
 
 __all__ = ["BaseModel", "build_base_model"]
 
 
 class BaseModel(nn.Module):
-    def __init__(self, backbone, head, neck=None, return_all_feats=False):
+    def __init__(self, backbone, head, neck=None, return_all_feats=False, transform=None):
         super().__init__()
+        self.transform = transform
         self.backbone = backbone
         self.neck = neck
         self.head = head
@@ -27,6 +29,8 @@ class BaseModel(nn.Module):
 
     def forward(self, x, data=None):
         y = {}
+        if self.transform is not None:
+            x = self.transform(x)
         x = self.backbone(x)
         y["backbone_out"] = x
         if self.neck is not None:
@@ -43,10 +47,15 @@ class BaseModel(nn.Module):
 def build_base_model(config):
     """Construct a BaseModel from an Architecture config section."""
     config = copy.deepcopy(config)
+    in_channels = config.get("in_channels", 3)
+    transform = None
     if config.get("Transform"):
-        raise NotImplementedError("Transform (TPS) is not ported yet (ROADMAP.md A.11)")
+        tcfg = dict(config["Transform"])
+        tcfg["in_channels"] = in_channels
+        transform = build_transform(tcfg)
+        in_channels = transform.out_channels
     bcfg = dict(config["Backbone"])
-    bcfg["in_channels"] = config.get("in_channels", 3)
+    bcfg["in_channels"] = in_channels
     backbone = build_backbone(bcfg, config["model_type"])
     in_channels = backbone.out_channels
 
@@ -60,4 +69,4 @@ def build_base_model(config):
     hcfg = dict(config["Head"])
     hcfg["in_channels"] = in_channels
     head = build_head(hcfg)
-    return BaseModel(backbone, head, neck, config.get("return_all_feats", False))
+    return BaseModel(backbone, head, neck, config.get("return_all_feats", False), transform)

@@ -1,17 +1,18 @@
 """Backbone registry — port of pytorchocr_tpu/modeling/backbones/__init__.py."""
 
 from ..registry import build
+from .det_mobilenet_v3 import MobileNetV3 as DetMobileNetV3
+from .det_repvgg import RepVGG
 from .det_resnet import ResNet
+from .det_shufflenet_v2 import ShuffleNetV2
 from .rec_mobilenet_v3 import MobileNetV3
 from .rec_vgg import VGG
 
 __all__ = ["build_backbone"]
 
-_DET = {"ResNet": ResNet}
-_DET_LATER = {
-    "MobileNetV3": "A.11", "ShuffleNetV2": "A.11", "RepVGG": "A.11",
-    "ConvNeXt": "A.11", "SwinTransformer": "A.11", "PPLCNet": "A.11",
-}
+_DET = {"ResNet": ResNet, "MobileNetV3": DetMobileNetV3, "ShuffleNetV2": ShuffleNetV2,
+        "RepVGG": RepVGG}
+_DET_LATER = {"ConvNeXt": "A.11", "SwinTransformer": "A.11", "PPLCNet": "A.13"}
 _REC = {"VGG": VGG, "MobileNetV3": MobileNetV3}
 _REC_LATER = {"ResNet": "A.11"}
 

@@ -1,17 +1,19 @@
-"""MobileNetV3 building blocks — port of
-pytorchocr_tpu/modeling/backbones/det_mobilenet_v3.py:19-120.
+"""MobileNetV3 — port of pytorchocr_tpu/modeling/backbones/det_mobilenet_v3.py.
 
-`mobilenet_v3_conf`, the squeeze-excitation `_SE` and `InvertedResidual`,
-which the recognition / direction-classifier variant (rec_mobilenet_v3.py)
-builds on. NCHW. The detection `MobileNetV3` class waits for ROADMAP.md
-A.11.
+`mobilenet_v3_conf`, the squeeze-excitation `_SE` and `InvertedResidual`
+(:19-120), which the recognition / direction-classifier variant
+(rec_mobilenet_v3.py) builds on, and the detection `MobileNetV3` (:123-164):
+a stride-2 hard_swish stem, the blocks, a 1x1 hard_swish `lastconv` to 6x the
+last width; the four feature maps are the inputs of the stride-2 blocks past
+`start_idx` (2 for large, 0 for small) and the lastconv's output. NCHW; BN
+eps 1e-3 and flax momentum 0.99 (torch 0.01) throughout.
 """
 
 from torch import nn
 
 from ..common import ConvBNAct, hard_sigmoid, make_divisible
 
-__all__ = ["mobilenet_v3_conf", "InvertedResidual"]
+__all__ = ["mobilenet_v3_conf", "InvertedResidual", "MobileNetV3"]
 
 
 def mobilenet_v3_conf(arch, width_mult=1.0, use_se=True, rec=False):
@@ -105,3 +107,33 @@ class InvertedResidual(nn.Module):
             out = self.se(out)
         out = self.project(out)
         return out + x if self.use_res else out
+
+
+class MobileNetV3(nn.Module):
+    """The detection backbone: four feature maps (det_mobilenet_v3.py:123)."""
+
+    def __init__(self, in_channels=3, model_name="large", width_mult=1.0, use_se=True):
+        super().__init__()
+        if width_mult not in (0.35, 0.5, 0.75, 1.0, 1.25):
+            raise ValueError("MobileNetV3 width_mult must be one of 0.35, 0.5, 0.75, 1.0, 1.25")
+        conf = mobilenet_v3_conf(model_name, width_mult, use_se)
+        bn = dict(bn_eps=1e-3, bn_momentum=0.99)
+        start_idx = 2 if model_name == "large" else 0
+        self.taps = [i for i, cnf in enumerate(conf) if cnf["stride"] == 2 and i > start_idx]
+        self.out_channels = [conf[i]["in_ch"] for i in self.taps] + [6 * conf[-1]["out"]]
+        self.conv1 = ConvBNAct(in_channels, conf[0]["in_ch"], 3, 2, act="hardswish", **bn)
+        self.block_names = ["block%d" % i for i in range(len(conf))]
+        for name, cnf in zip(self.block_names, conf):
+            self.add_module(name, InvertedResidual(cnf))
+        self.lastconv = ConvBNAct(conf[-1]["out"], self.out_channels[-1], 1, 1,
+                                  act="hardswish", **bn)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        outs = []
+        for i, name in enumerate(self.block_names):
+            if i in self.taps:
+                outs.append(x)
+            x = getattr(self, name)(x)
+        outs.append(self.lastconv(x))
+        return outs

@@ -5,14 +5,16 @@ pytorchocr_tpu/modeling/necks/fpem_ffm.py.
 modules (up then down path of depthwise 3x3 + 1x1 smoothing), then the four
 levels upsampled to 1/4 and concatenated: fused_channels = 4*out_channels.
 v2 (PAN++) adds each FPEM's input to its output and fuses the last FPEM;
-v1 fuses the sum of all FPEMs. NCHW. Not ported: the ASF attention
-(`use_asf`, ROADMAP.md A.11).
+v1 fuses the sum of all FPEMs. NCHW. `use_asf` puts the fused map through
+the ASF attention, `ScaleFeatureSelection(4 * out_channels, out_channels)`
+(JAX fpem_ffm.py:104-108).
 """
 
 import torch
 from torch import nn
 
 from ..common import ConvBNAct, resize_nearest
+from .asf import ScaleFeatureSelection
 
 __all__ = ["FPEM_FFM"]
 
@@ -58,8 +60,6 @@ class FPEM_FFM(nn.Module):
     def __init__(self, in_channels, out_channels=128, mode="v2", fpem_num=2,
                  use_asf=False, attention_type="scale_spatial"):
         super().__init__()
-        if use_asf:
-            raise NotImplementedError("FPEM_FFM use_asf is not ported (ROADMAP.md A.11)")
         if mode not in ("v1", "v2"):
             raise ValueError("FPEM_FFM mode must be v1 or v2, got %r" % mode)
         oc = out_channels
@@ -71,6 +71,8 @@ class FPEM_FFM(nn.Module):
         self.fpem_names = ["fpem_%d" % (i + 1) for i in range(fpem_num)]
         for name in self.fpem_names:
             self.add_module(name, FPEM(oc, mode))
+        self.concat_attention = (
+            ScaleFeatureSelection(oc * 4, oc, attention_type=attention_type) if use_asf else None)
 
     def forward(self, x):
         c2, c3, c4, c5 = x
@@ -83,5 +85,8 @@ class FPEM_FFM(nn.Module):
             f1, f2, f3, f4 = fpems[-1]
         else:
             f1, f2, f3, f4 = (sum(level) for level in zip(*fpems))
-        return torch.cat([f1, resize_nearest(f2, 2), resize_nearest(f3, 4),
-                          resize_nearest(f4, 8)], dim=1)
+        feats = [f1, resize_nearest(f2, 2), resize_nearest(f3, 4), resize_nearest(f4, 8)]
+        fuse = torch.cat(feats, dim=1)
+        if self.concat_attention is not None:
+            fuse = self.concat_attention(fuse, feats)
+        return fuse

@@ -9,7 +9,12 @@ in DB mode the fused map is int8 (JAX fpn.py:96-128, `q8_fpn_fuse`): p5..p2
 are quantized with one shared calibrated absmax (`fuse_absmax`), so the
 concatenation of their int8 payloads, upsampled x8/x4/x2, is one QTensor for
 the head. The top-down adds stay float (`q8_fpn_topdown` is off in the JAX
-package). Not ported: the ASF attention (DB++, ROADMAP.md A.11).
+package).
+
+`use_asf` (DB++): the fused map goes through the ASF attention,
+`ScaleFeatureSelection(fused_channels, sc)` (JAX fpn.py:139-146). The JAX
+FPN keys its int8 regions off under `use_asf` (fpn.py:39,66,99), so the
+fused map here has no `fuse_absmax` then and stays float.
 """
 
 import torch
@@ -17,6 +22,7 @@ from torch import nn
 
 from ...ops import quant
 from ..common import ConvBNAct, resize_nearest
+from .asf import ScaleFeatureSelection
 
 __all__ = ["FPN"]
 
@@ -25,8 +31,6 @@ class FPN(nn.Module):
     def __init__(self, in_channels, out_channels=256, mode=None, use_asf=False,
                  attention_type="scale_spatial"):
         super().__init__()
-        if use_asf:
-            raise NotImplementedError("FPN use_asf (DB++) is not ported (ROADMAP.md A.11)")
         oc = out_channels
         self.mode = mode
         self.fused_channels = oc if mode == "DB" else oc * 4
@@ -41,7 +45,10 @@ class FPN(nn.Module):
         self.out3 = ConvBNAct(oc, sc, 3, 1)
         self.out2 = ConvBNAct(oc, sc, 3, 1)
         self.qmode = None
-        self.fuse_absmax = quant.AbsMax() if mode == "DB" else None
+        self.fuse_absmax = quant.AbsMax() if mode == "DB" and not use_asf else None
+        self.concat_attention = (
+            ScaleFeatureSelection(self.fused_channels, sc, attention_type=attention_type)
+            if use_asf else None)
 
     def forward(self, x):
         c2, c3, c4, c5 = x
@@ -61,4 +68,7 @@ class FPN(nn.Module):
             return quant.QTensor(payload, q2.scale)
         p5, p4, p3 = resize_nearest(p5, 8), resize_nearest(p4, 4), resize_nearest(p3, 2)
         feats = [p5, p4, p3, p2] if self.mode == "DB" else [p2, p3, p4, p5]
-        return torch.cat(feats, dim=1)
+        fuse = torch.cat(feats, dim=1)
+        if self.concat_attention is not None:
+            fuse = self.concat_attention(fuse, feats)
+        return fuse

@@ -37,7 +37,7 @@ from . import int8_conv as _int8_conv
 from . import requant
 
 __all__ = [
-    "QTensor", "AbsMax", "QuantConv", "quantized", "quantizing", "calibrate",
+    "QTensor", "AbsMax", "QuantConv", "quantized", "quantizing", "calibrate", "unsupported",
     "compute_dtype", "dequant", "qtensor_from", "qadd_act", "repeat_nearest", "qmaxpool",
 ]
 
@@ -66,12 +66,33 @@ def quantized(model, m="int8"):
             mod.qmode = p
 
 
+def unsupported(model):
+    """Why int8 PTQ of the detection `model` is not ported, or None: the
+    port carries the JAX package's int8 regions of the ResNet backbone, the
+    FPN's fused map, FPEM_FFM and the DB/PSE/PAN heads; the other detection
+    backbones and the ASF attention (DB++) wait for ROADMAP.md A.16. A
+    module without a backbone (one block, a head) is not judged."""
+    if not hasattr(model, "backbone"):
+        return None
+    backbone = type(model.backbone).__name__
+    if backbone != "ResNet":
+        return "int8 PTQ of the %s backbone is not ported (ROADMAP.md A.16)" % backbone
+    if getattr(getattr(model, "neck", None), "concat_attention", None) is not None:
+        return "int8 PTQ with the ASF attention (DB++) is not ported (ROADMAP.md A.16)"
+    return None
+
+
 @torch.inference_mode()
 def calibrate(model, batches, forward=None):
     """Record every activation absmax over `batches` (running max across
     batches and across calls, as the JAX `calibrate` continues from existing
     `quant` variables). `forward(batch)` runs the model (default: `model`),
-    e.g. with the deploy runner's normalisation and compute dtype."""
+    e.g. with the deploy runner's normalisation and compute dtype. A model
+    whose int8 path is not ported raises NotImplementedError
+    (`unsupported`)."""
+    reason = unsupported(model)
+    if reason:
+        raise NotImplementedError(reason)
     forward = model if forward is None else forward
     n = 0
     with quantized(model, "calibrate"):

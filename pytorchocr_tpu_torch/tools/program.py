@@ -32,9 +32,8 @@ from ..utils.logging import get_logger, print_dict, process_rank
 from ..utils.save_load import save_model
 from ..utils.stats import TrainingStats
 
-SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "CLS"]
-_LATER_ALGS = {"STARNet": "A.11",
-               "Distillation": "A.12", "SLANet": "A.13"}
+SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "STARNet", "CLS"]
+_LATER_ALGS = {"Distillation": "A.12", "SLANet": "A.13"}
 
 
 def set_random_seed(seed):
@@ -206,6 +205,8 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
     freeze_tf_epochs = int(global_config.get("freeze_transform_epochs", 0))
     if freeze_tf_epochs > 0:
         frozen = (("transform", freeze_tf_epochs * len(train_dataloader)),)
+        logger.info("Transform params frozen for the first %d epochs (%d steps)",
+                    freeze_tf_epochs, frozen[0][1])
     train_step = make_train_step(model, loss_class, optimizer,
                                  input_transform=build_input_transform(dn_spec.get("Train")),
                                  amp=amp, frozen=frozen)

@@ -87,8 +87,12 @@ def mask_frozen_(model, step, frozen):
     """Zero the gradients of the top-level submodules named in `frozen`,
     pairs (prefix, until_step), while step < until_step; returns their
     parameters and values, which `restore_frozen_` writes back after the
-    update, so neither the moments' input nor the update moves them. From
-    trainer.py:110."""
+    update, so neither the moments' input nor the update moves them. The
+    gradients are zeros, not None, so the optimizer still steps them: their
+    Adam moments decay and the count advances as optax's do. BN running
+    statistics are buffers and still update, as the JAX mask leaves
+    `batch_stats` alone. The gate is the optimizer's count before the
+    update, the JAX `state.step`. From trainer.py:110."""
     kept = []
     for prefix, until in frozen:
         if step >= until or not hasattr(model, prefix):

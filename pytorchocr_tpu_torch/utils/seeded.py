@@ -25,7 +25,9 @@ def seeded_init_(model, generator):
     """Re-initialise `model` in place from a torch.Generator, with the JAX
     package's initialisers: kaiming normal (fan_out) convs, lecun normal
     Linear and LSTM input weights, orthogonal LSTM recurrent weights, zero
-    biases, identity BN statistics."""
+    biases, identity BN statistics; then every module's own JAX initialiser
+    where it has one (`init_like_jax_`: the TPS's zero tail and RARE's
+    fiducial init)."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
             # fan_out of the flax kernel (kh, kw, in, out) is kh*kw*out
@@ -53,6 +55,9 @@ def seeded_init_(model, generator):
         if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
                 and module.bias is not None:
             module.bias.zero_()
+    for module in model.modules():
+        if hasattr(module, "init_like_jax_"):
+            module.init_like_jax_()
     return model
 
 
@@ -223,3 +228,33 @@ def decisive_cls_head_(model, images, spread=4.0):
     fc.weight[1] = (a * v[0]).to(fc.weight.dtype)
     fc.bias[1] = -a * float(med)
     return float((a * (z - med)).abs().min())
+
+
+@torch.no_grad()
+def nontrivial_bn_(model, generator, spread=0.1):
+    """Seeded BN statistics and affine parameters away from the identity
+    (running mean ~ N(0, spread), running var in [1 - 5 spread, 1 + 5
+    spread], scale ~ N(1, spread), shift ~ N(0, spread)), so that a fold of
+    BN into a conv (RepVGG's deploy form) has work to do."""
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            n = m.num_features
+            m.running_mean.copy_(spread * torch.randn(n, generator=generator))
+            m.running_var.copy_(1.0 + 10 * spread * (torch.rand(n, generator=generator) - 0.5))
+            m.weight.copy_(1.0 + spread * torch.randn(n, generator=generator))
+            m.bias.copy_(spread * torch.randn(n, generator=generator))
+    return model
+
+
+@torch.no_grad()
+def perturbed_tps_(model, generator, stretch=1.1, scale=0.02):
+    """Perturb a model's TPS from its RARE init (fc2's weight zero, its bias
+    the fiducial grid): fc2's weight ~ N(0, scale) and its bias stretched by
+    `stretch`, so that the warp follows the input (at the RARE init the
+    localization net's layers below fc2 get no gradient) and, at stretch >
+    1, part of the grid leaves [-1, 1], where the JAX sampler's border rule
+    acts. `generator` is a CPU torch.Generator."""
+    fc2 = model.transform.loc_net.fc2
+    fc2.weight.copy_(scale * torch.randn(fc2.weight.shape, generator=generator))
+    fc2.bias.mul_(stretch)
+    return model

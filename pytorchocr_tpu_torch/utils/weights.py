@@ -14,6 +14,14 @@ the flax ones, so a torch module at `a.b.c` reads the flax subtree
                     weight_hh_l0[_reverse] = wh[d].T, bias_ih = b[d], bias_hh = 0
                     (bias_hh is held at 0 and never trained: modeling/necks/rnn.py)
 
+The zoo's modules take the same rule, their names mirroring the flax ones:
+DB++'s ASF attention (`neck/concat_attention/{conv, att/{fc1, bn, fc2, cw1,
+cw2, sw1, sw2, aw}}`), RepVGG's `dense`, `one`, `idbn`, `se` and `reparam`,
+ShuffleNetV2's `stage%d_%d/{b1dw, b1pw, b2pw1, b2dw, b2pw2}` and `conv5`, the
+detection MobileNetV3's `block%d`, and STAR-Net's TPS (`transform/loc_net/
+{conv0..3, fc1, fc2}`, `transform/fc`); so do the optax moments of
+`load_optax_adam_state`.
+
 Every torch tensor must find its flax leaf and every flax leaf must be used;
 anything else raises.
 

@@ -171,7 +171,7 @@ def test_bridge_rejects_mismatched_trees():
 
 
 @pytest.mark.parametrize("section,name,item", [
-    ("Backbone", "MobileNetV3", "A.11"), ("Neck", "CSPPAN", "A.13"),
+    ("Backbone", "ConvNeXt", "A.11"), ("Neck", "CSPPAN", "A.13"),
     ("Head", "SLAHead", "A.13"),
 ])
 def test_registry_names_the_roadmap_item(section, name, item):

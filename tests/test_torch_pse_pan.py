@@ -219,5 +219,6 @@ def test_fpem_ffm_v1_matches_jax():
         got = nhwc(tmod([nchw(a) for a in x]))
     assert got.shape == (2, 16, 16, 32) and tmod.fused_channels == 32
     np.testing.assert_allclose(got, np.asarray(apply(variables, x)), **DEEP)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        FPEM_FFM(chans, use_asf=True)
+    # use_asf adds the ASF attention after the fusion (tests/test_torch_zoo.py)
+    assert FPEM_FFM(chans, out_channels=8, use_asf=True).concat_attention is not None
+    assert tmod.concat_attention is None

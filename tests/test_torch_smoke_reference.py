@@ -16,6 +16,7 @@ import chip_smoke
 from pytorchocr_tpu_torch.losses.det_db_loss import DBLoss
 from pytorchocr_tpu_torch.modeling import build_model
 from pytorchocr_tpu_torch.tools.train import seeded_init_
+from pytorchocr_tpu_torch.utils.seeded import perturbed_tps_
 
 ARCHS = {
     # MobileNetV3 small x0.35 (relu, hard_swish and hard_sigmoid through relu6)
@@ -27,12 +28,20 @@ ARCHS = {
              "Backbone": {"name": "VGG", "scale": 0.5},
              "Neck": {"name": "SequenceEncoder", "encoder_type": "rnn", "hidden_size": 16},
              "Head": {"name": "CTCHead", "out_channels": 10}}, (2, 3, 32, 64)),
+    # STAR-Net: TPS small off RARE's init (relu, max_pool2d, the sampler's floor)
+    "starnet": ({"model_type": "rec", "algorithm": "STARNet", "in_channels": 1,
+                 "Transform": {"name": "TPS", "num_fiducial": 20, "model_name": "small"},
+                 "Backbone": {"name": "VGG", "scale": 0.5},
+                 "Neck": {"name": "SequenceEncoder", "encoder_type": "rnn", "hidden_size": 16},
+                 "Head": {"name": "CTCHead", "out_channels": 10}}, (2, 1, 32, 64)),
 }
 
 
 def _model(arch, dtype):
     model = build_model(copy.deepcopy(arch))
     seeded_init_(model, torch.Generator().manual_seed(0))
+    if arch.get("Transform"):  # RARE's init gives the localization net no gradient
+        perturbed_tps_(model, torch.Generator().manual_seed(1))
     return model.to(dtype).train()
 
 
@@ -49,7 +58,9 @@ def test_forward_replay_takes_the_recorded_pieces(kind):
     branches = chip_smoke.Branches()
     g32 = _grads(branches.wrap(_model(arch, torch.float32), replay=False), x)
     names = {name for name, _ in branches.records["model"]}
-    assert names >= ({"relu", "relu6"} if kind == "cls" else {"relu", "max_pool2d"}), names
+    want = {"cls": {"relu", "relu6"}, "rec": {"relu", "max_pool2d"},
+            "starnet": {"relu", "max_pool2d", "floor"}}[kind]
+    assert names >= want, names
     # the run's own record: bit for bit, no element counted
     assert all(torch.equal(g32[k], g) for k, g in _grads(
         branches.wrap(_model(arch, torch.float32), replay=True), x).items())
@@ -73,6 +84,27 @@ def test_forward_replay_takes_the_recorded_pieces(kind):
     moved = _grads(b64.wrap(_model(arch, torch.float64), replay=True), x64)
     assert b64.flips[name] >= piece.numel()
     assert max(float((plain[k] - g).abs().max()) for k, g in moved.items()) > 1e-3
+
+
+def test_sampler_floor_replay_takes_the_recorded_corners():
+    """The TPS sampler's floor, recorded on one run and replayed on another:
+    a record moved by one on every element (the other corners, as a
+    coordinate within rounding of an integer can take on another device)
+    is counted element by element and moves the transform's gradients."""
+    arch, shape = ARCHS["starnet"]
+    x = torch.from_numpy(np.random.RandomState(2).randn(*shape)).double()
+    plain = _grads(_model(arch, torch.float64), x)
+    branches = chip_smoke.Branches()
+    _grads(branches.wrap(_model(arch, torch.float64), replay=False), x)
+    floors = [i for i, (name, _) in enumerate(branches.records["model"]) if name == "floor"]
+    assert len(floors) == 2  # x and y of the one sampling grid
+    i = floors[0]
+    name, value = branches.records["model"][i]
+    branches.records["model"][i] = (name, value + 1)
+    moved = _grads(branches.wrap(_model(arch, torch.float64), replay=True), x)
+    assert branches.flips["floor"] == value.numel()
+    assert max(float((plain[k] - moved[k]).abs().max()) for k in plain
+               if k.startswith("transform.")) > 1e-6
 
 
 def test_db_loss_replay_takes_the_recorded_cut_sign_and_clamp():

@@ -123,6 +123,72 @@ def init_pair(jmod, tmod, x_nhwc, seed=0, **apply_kw):
     return variables, jax.jit(partial(jmod.apply, train=False, **apply_kw))
 
 
+def shaped_variables(jmod, x_nhwc, seed=0, **init_kw):
+    """Random flax variables of `jmod` without running its init: the tree's
+    shapes from `jax.eval_shape` (a trace, no compile), kernels drawn from
+    numpy with variance 1 / fan-in (kh*kw*in of a conv, in of a Dense), then
+    `randomize`'s biases and BN statistics. Much quicker than a jitted init
+    on the CPU for deep backbones."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(partial(jmod.init, train=True, **init_kw), jax.random.PRNGKey(seed),
+                            jax.tree.map(jnp.asarray, x_nhwc))
+    rng = np.random.RandomState(seed)
+
+    def fill(s):
+        fan_in = int(np.prod(s.shape[:-1])) or 1
+        return (rng.randn(*s.shape) * np.sqrt(1.0 / fan_in)).astype(np.float32)
+
+    variables = jax.tree.map(fill, jax.device_get(dict(shapes)))
+    return randomize(variables, rng)
+
+
+def shaped_train_state(jmod, tx, x_nhwc, seed=0):
+    """A JAX TrainState of `jmod` (a BaseModel) holding `shaped_variables`
+    and `tx`'s initial state: `create_train_state` without the jitted flax
+    init (seconds on the CPU for a deep model)."""
+    import jax.numpy as jnp
+
+    from pytorchocr_tpu.trainer import TrainState
+
+    variables = shaped_variables(jmod, x_nhwc, seed)
+    return TrainState(params=variables["params"], batch_stats=variables.get("batch_stats", {}),
+                      opt_state=tx.init(variables["params"]), step=jnp.zeros((), jnp.int32))
+
+
+def shaped_pair(jmod, tmod, x_nhwc, seed=0, **apply_kw):
+    """`init_pair` with `shaped_variables` in place of the flax init."""
+    import jax
+
+    from pytorchocr_tpu_torch.utils.weights import load_flax_variables
+
+    variables = shaped_variables(jmod, x_nhwc, seed, **apply_kw)
+    load_flax_variables(tmod, variables)
+    tmod.eval()
+    return variables, jax.jit(partial(jmod.apply, train=False, **apply_kw))
+
+
+def perturbed_tps_params(params, rng, stretch=1.15, rare=True):
+    """A TPS's flax params (the `transform` subtree) set to RARE's init
+    (or, with `rare` False, to the fiducials of the identity warp),
+    perturbed: fc2's weight small and random, its fiducial bias stretched by
+    `stretch` (1.15: part of the grid leaves [-1, 1]; below 1 keeps it
+    inside), so the grid depends on the input; the tail `fc` small and
+    random, its bias 0."""
+    loc = params["loc_net"]
+    loc["fc2"]["kernel"] = (0.02 * rng.randn(*loc["fc2"]["kernel"].shape)).astype(np.float32)
+    half = loc["fc2"]["bias"].shape[0] // 4
+    x = np.linspace(-1.0, 1.0, half)
+    top, bottom = ((np.linspace(0.0, -1.0, half), np.linspace(1.0, 0.0, half)) if rare
+                   else (-np.ones(half), np.ones(half)))
+    fid = np.concatenate([np.stack([x, top], 1), np.stack([x, bottom], 1)]).reshape(-1)
+    loc["fc2"]["bias"] = (stretch * fid).astype(np.float32)
+    params["fc"]["kernel"] = (0.01 * rng.randn(*params["fc"]["kernel"].shape)).astype(np.float32)
+    params["fc"]["bias"] = np.zeros_like(params["fc"]["bias"])
+    return params
+
+
 def nchw(x):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))))
 
@@ -263,10 +329,12 @@ def tiny_det_config(path, base, train_label, eval_label, save_dir, size=64, neck
 def tiny_rec_cls_config(path, kind, train_label, eval_label, save_dir):
     """Write a small-shape copy of the CRNN (`kind` "rec":
     rec_vgg_bilstm_ctc_synth.yml with VGG scale 0.5, hidden 48, 1x32x64
-    lines, the 36-character table) or classifier (`kind` "cls":
-    cls_mbv3small_synth.yml at 3x24x96) training config to `path`: batch
-    4, float32, CPU, one epoch with an eval after it, every
-    augmentation and cal_metric_during_train kept; return it."""
+    lines, the 36-character table), STAR-Net (`kind` "starnet":
+    rec_vgg_tps_bilstm_ctc_synth.yml alike, its TPS "small", the freeze as
+    published) or classifier (`kind` "cls": cls_mbv3small_synth.yml at
+    3x24x96) training config to `path`: batch 4, float32, CPU, one epoch
+    with an eval after it, every augmentation and cal_metric_during_train
+    kept; return it."""
     import os
 
     import yaml
@@ -275,13 +343,16 @@ def tiny_rec_cls_config(path, kind, train_label, eval_label, save_dir):
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     base = {"rec": "configs/rec/rec_vgg_bilstm_ctc_synth.yml",
+            "starnet": "configs/rec/rec_vgg_tps_bilstm_ctc_synth.yml",
             "cls": "configs/cls/cls_mbv3small_synth.yml"}[kind]
     cfg = load_config(os.path.join(repo, base))
     cfg["Global"].update(use_gpu=False, use_amp=False, epoch_num=1, print_batch_step=1,
                          save_model_dir=str(save_dir), eval_epoch_step=[0, 1],
                          log_smooth_window=2)
-    shape = [1, 32, 64] if kind == "rec" else [3, 24, 96]
-    if kind == "rec":
+    shape = [3, 24, 96] if kind == "cls" else [1, 32, 64]
+    if kind == "starnet":
+        cfg["Architecture"]["Transform"]["model_name"] = "small"
+    if kind != "cls":
         cfg["Architecture"]["Backbone"]["scale"] = 0.5
         cfg["Architecture"]["Neck"]["hidden_size"] = 48
     for mode in ("Train", "Eval"):
@@ -295,3 +366,30 @@ def tiny_rec_cls_config(path, kind, train_label, eval_label, save_dir):
     with open(path, "w") as f:
         yaml.safe_dump(_plain(cfg), f, sort_keys=False)
     return str(path)
+
+
+TRAIN_SCRIPT = (
+    "import importlib, json, sys\n"
+    "out = importlib.import_module('pytorchocr_tpu_torch.tools.train').run(sys.argv[1:])\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pytorchocr_tpu'))\n"
+    "assert not bad, bad\n"
+    "print('RESULT ' + json.dumps({'steps': out['steps'], 'best': out['best']}))\n"
+)
+
+
+def train_cli(cfg, *opts):
+    """`python -m pytorchocr_tpu_torch.tools.train -c cfg -o Global.use_gpu=False
+    *opts` in a subprocess from the repo root that must load no module of
+    jax, flax or the JAX package; returns {"steps", "best"} of its report."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT, "-c", str(cfg), "-o",
+                           "Global.use_gpu=False", *opts], cwd=repo, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
