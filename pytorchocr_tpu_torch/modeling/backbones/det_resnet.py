@@ -71,6 +71,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+
     def __init__(self, in_channels=3, layers=18, mode_3x3=False,
                  dilation_last=False, stem_space_to_depth=False):
         super().__init__()

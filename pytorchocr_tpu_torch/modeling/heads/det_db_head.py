@@ -50,6 +50,8 @@ class _Tower(nn.Module):
 
 
 class DBHead(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+
     def __init__(self, in_channels, k=50):
         super().__init__()
         self.k = k

@@ -14,6 +14,8 @@ __all__ = ["PSEHead"]
 
 
 class PSEHead(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported (PANHead's too)
+
     def __init__(self, in_channels, hidden_dim=256, out_channels=7):
         super().__init__()
         self.conv1 = ConvBNAct(in_channels, hidden_dim, 3, 1, use_bias=True, act="relu")

@@ -73,6 +73,7 @@ class FPEM_FFM(nn.Module):
             self.add_module(name, FPEM(oc, mode))
         self.concat_attention = (
             ScaleFeatureSelection(oc * 4, oc, attention_type=attention_type) if use_asf else None)
+        self.int8_ported = not use_asf  # ops.quant.unsupported: no int8 ASF (ROADMAP.md A.16)
 
     def forward(self, x):
         c2, c3, c4, c5 = x

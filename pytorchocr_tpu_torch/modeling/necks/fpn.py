@@ -46,6 +46,7 @@ class FPN(nn.Module):
         self.out2 = ConvBNAct(oc, sc, 3, 1)
         self.qmode = None
         self.fuse_absmax = quant.AbsMax() if mode == "DB" and not use_asf else None
+        self.int8_ported = not use_asf  # ops.quant.unsupported: no int8 ASF (ROADMAP.md A.16)
         self.concat_attention = (
             ScaleFeatureSelection(self.fused_channels, sc, attention_type=attention_type)
             if use_asf else None)

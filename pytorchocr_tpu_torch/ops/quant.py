@@ -67,18 +67,18 @@ def quantized(model, m="int8"):
 
 
 def unsupported(model):
-    """Why int8 PTQ of the detection `model` is not ported, or None: the
-    port carries the JAX package's int8 regions of the ResNet backbone, the
-    FPN's fused map, FPEM_FFM and the DB/PSE/PAN heads; the other detection
-    backbones and the ASF attention (DB++) wait for ROADMAP.md A.16. A
-    module without a backbone (one block, a head) is not judged."""
+    """Why int8 PTQ of the detection `model` is not ported, or None. Each
+    stage of the model (transform, backbone, neck, head) whose JAX int8
+    regions the port carries says so with a true `int8_ported`: the ResNet
+    backbone, the FPN and FPEM_FFM without the ASF attention, and the
+    DB/PSE/PAN heads; the others wait for ROADMAP.md A.16. A module without
+    a backbone (one block, a head) is not judged."""
     if not hasattr(model, "backbone"):
         return None
-    backbone = type(model.backbone).__name__
-    if backbone != "ResNet":
-        return "int8 PTQ of the %s backbone is not ported (ROADMAP.md A.16)" % backbone
-    if getattr(getattr(model, "neck", None), "concat_attention", None) is not None:
-        return "int8 PTQ with the ASF attention (DB++) is not ported (ROADMAP.md A.16)"
+    for name, stage in model.named_children():
+        if not getattr(stage, "int8_ported", False):
+            return "int8 PTQ of the %s (%s) is not ported (ROADMAP.md A.16)" % (
+                name, type(stage).__name__)
     return None
 
 
