@@ -88,7 +88,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      start (means of the first and last 20 steps), with steps/s, samples/s,
      the loader-wait share, and the bucketed evaluate after the last epoch,
      the main-path run of K1 on the training-eval path (counted); the eval
-     CLI on the saved checkpoint; card busy over 4 steps by torch.profiler;
+     CLI on the saved checkpoint; card busy over 2 steps by torch.profiler;
  12. CRNN training, rec_vgg_bilstm_ctc_synth.yml as published (VGG v1 x1.0,
      BiLSTM 256, CTC over the 36-character table and blank, bs 128 at
      1x32x320 gray, RecAug, amsgrad + WarmupPolyLR, bf16, 8 loader threads,
@@ -104,7 +104,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      and per-step-metric shares; tools.eval.run on best_accuracy equal to the
      train run's metric; Recer (deploy.infer_rec) on best_accuracy reading
      the eval lines as the eval post process does; card busy by
-     torch.profiler over 4 iterations of the loop;
+     torch.profiler over 2 iterations of the loop;
  13. direction-classifier training, cls_mbv3small_synth.yml as published
      (MobileNetV3 small x0.35, bs 128 at 3x48x192, RecAug without TIA and
      RandAugment) on drawn lines of 5-25 characters, half turned by 180
@@ -130,7 +130,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      flag, to the plain version (the main-path run of both kernels on the
      PSE-train-eval path); tools.eval.run on latest equal to it; Deter
      (deploy.infer_det) on best_accuracy giving the eval's boxes page by
-     page; card busy over 4 steps;
+     page; card busy over 2 steps;
  15. PAN++ training, det_r18_pan_synth.yml as published (ResNet-18,
      FPEM_FFM v2 128 x2, PANHead 128 -> 6, PANLoss v2 with the embedding
      loss, bs 16 at 640x640, MakePanGt, float32 images on the wire), the
@@ -151,6 +151,29 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      freeze, after a freeze check) and the eval CLIs; DB++'s fall past its
      plateau on one fixed batch, that model served by Deter from its
      checkpoint directory, and STAR-Net's best_accuracy served by Recer.
+ 18. SLANet tables on 160 train and 48 eval tables drawn with cv2 (2-8 rows,
+     2-6 columns, headers, colspans, empty cells, Hershey text; PubTabNet
+     jsonl through PubTabDataSet): (a) table_sla_ch.yml served with seeded
+     weights (its structure_fc2 made decisive: utils.seeded) through
+     program.evaluate, 501 decode steps at 480x480: float32 on the card
+     against the CPU on 8 tables (token sequences equal up to eos, but a
+     table that differs only after a step whose CPU top-2 margin lies within
+     2x the largest probability difference before it, counted; decoded td
+     boxes within TABLE_BOX_TOL px; at least 20 tokens before eos on 6 of
+     8), then the bf16 eval of the 48 timed (tables/s, the decode loop's
+     share of the forward by CUDA events, kernel launches a decode step by
+     torch.profiler, card busy; none of the port's kernels launched);
+     (b) table_sla_synth.yml trained as published: the float32 step (bs 2)
+     against float64 on the card's pieces (hardswish's relu6, CSPPAN's leaky
+     relu, relu, the loss's abs and comparisons) and the card's scheduled-
+     sampling coins and fed-back tokens, with its TF32-on control; the
+     checkpoint round trip; 40 steps through tools.train.run (steps/s,
+     samples/s, loader wait, peak memory, the loss under 0.7 of its start)
+     and tools.eval.run on best_accuracy equal to its eval; (c) one fixed
+     batch of 8 drawn tables (the decode cut to 81 steps) read back (7 of 8
+     structures exactly) within a step cap, the untrained model failing that reading, and the checkpoint
+     read alike by tools.eval.run (the entry point of `python -m
+     pytorchocr_tpu_torch.tools.eval`). The table path adds no kernel launch.
 Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
@@ -158,7 +181,8 @@ JAX package (pytorchocr_tpu) was loaded. The line before the last is
 library_ms, launches, and `timing`, how device_ms was taken), the last one
 the contract {"ok": true, "device":
 {...}}. Without a card, or outside a checkout, it exits non-zero and prints
-no result.
+no result. `--only 18` runs phase 18 alone after the device report, and
+prints no result.
 """
 
 import json
@@ -1862,28 +1886,34 @@ def match_iou(runs, refs, min_iou=0.5):
     return matched, same
 
 
-def device_time(fn, call_s, sums=()):
-    """Card time of one call of `fn` from a torch.profiler trace: the time of
-    the kernels and copies on the card summed (work that overlaps counts
-    twice), as a share of `call_s`, the same call's unprofiled wall time,
-    the five kernels that take the most, the total of the kernels whose name
-    holds each string of `sums`, and the port's own kernels with the records
-    the trace holds of them (the tracer can drop some). Host-side op events,
-    which carry their kernels' time too, and the user annotations that the
-    profiler lays on the card's timeline (`Optimizer.step#...`, the span of
-    the optimizer's launches) are left out."""
+def card_events(fn):
+    """The card's kernels and copies in one call of `fn`, from a torch.profiler
+    trace of the card's activity (key_averages: one event per name, with its
+    count and device time). The host's op events are not recorded: they
+    carry their kernels' time again and cost the trace's post-processing
+    seconds per 10,000 launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
-              and not getattr(e, "is_user_annotation", False)
-              and not e.key.startswith("Optimizer.")]
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+
+
+def device_time(fn, call_s, sums=()):
+    """Card time of one call of `fn` (card_events): the time of the kernels
+    and copies on the card summed (work that overlaps counts twice), as a
+    share of `call_s`, the same call's unprofiled wall time, the five kernels
+    that take the most, the total of the kernels whose name holds each string
+    of `sums`, and the port's own kernels with the records the trace holds of
+    them (the tracer can drop some)."""
+    events = card_events(fn)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
         return "the trace holds no device time: not measured"
@@ -2049,11 +2079,13 @@ def train_parts(config, device, amp, schedule=None, wrap_loss=None, frozen=()):
 
 class Branches:
     """Which piece of each piecewise-linear function every element took in
-    one run's model forward (relu's two; relu6's and hardtanh's three, so
-    hard_swish's and hard_sigmoid's at -3 and 3; max_pool2d's argmax; the
-    integer that floor gives, so the corners and weights of the TPS's
-    bilinear sampler, whose gradient with respect to the grid jumps where a
-    coordinate crosses an integer) and,
+    one run's model forward (relu's two, leaky_relu's two; relu6's and
+    hardtanh's three, so hard_swish's and hard_sigmoid's at -3 and 3;
+    max_pool2d's argmax; the integer that floor gives, so the corners and
+    weights of the TPS's bilinear sampler, whose gradient with respect to the
+    grid jumps where a coordinate crosses an integer; and the values of
+    argmax and rand, so the tokens that SLAHead's scheduled sampling feeds
+    back and its coins) and,
     where the loss is wrapped too, in its loss (abs's sign, clamp's three
     pieces, and the result of every comparison: OHEM's cut and the bisection
     that finds it), recorded there (`wrap` / `wrap_loss` with replay False)
@@ -2070,6 +2102,7 @@ class Branches:
     KINKS = {"relu": (0.0, None), "relu6": (0.0, 6.0), "hardtanh": (-1.0, 1.0)}
     POOLS = ("_max_pool2d", "max_pool2d", "max_pool2d_with_indices")
     FLOORS = ("floor",)
+    RECORDED = ("argmax", "rand")  # replayed as the recorded values
     POOL_ARGS = ("input", "kernel_size", "stride", "padding", "dilation", "ceil_mode",
                  "return_indices")
     CLAMPS = ("clamp", "clip")
@@ -2100,6 +2133,10 @@ class Branches:
                 kwargs = kwargs or {}
                 if name in Branches.KINKS:
                     return state._kink(role, name, func, args, kwargs, replay)
+                if name == "leaky_relu":
+                    return state._leaky(role, func, args, kwargs, replay)
+                if name in Branches.RECORDED:
+                    return state._recorded(role, name, func, args, kwargs, replay)
                 if name in Branches.POOLS:
                     return state._pool(role, func, args, kwargs, replay)
                 if name in Branches.FLOORS:
@@ -2108,7 +2145,7 @@ class Branches:
                     return state._kink(role, name, func, args, kwargs, replay)
                 if loss and name in Branches.COMPARISONS:
                     return state._compare(role, func, args, kwargs, replay)
-                if name.rstrip("_") in Branches.KINKS or (
+                if name.rstrip("_") in tuple(Branches.KINKS) + ("leaky_relu",) or (
                         loss and name.rstrip("_") in Branches.CLAMPS + ("abs",)):
                     raise NotImplementedError("Branches: in-place %s" % name)
                 return func(*args, **kwargs)
@@ -2185,6 +2222,38 @@ class Branches:
             out = torch.where(card == 2, torch.tensor(hi, dtype=x.dtype), out)
         return out
 
+    def _leaky(self, role, func, args, kwargs, replay):
+        """leaky_relu: piece 1 above 0 (the gradient passes whole, as its
+        backward takes x > 0), 0 at or below (negative_slope)."""
+        import torch
+
+        v = dict(zip(("input", "negative_slope", "inplace"), args), **kwargs)
+        if v.get("inplace"):
+            raise NotImplementedError("Branches: in-place leaky_relu")
+        x, slope = v["input"], v.get("negative_slope", 0.01)
+        with torch.no_grad():
+            piece = (x > 0).to(torch.uint8)
+        if not replay:
+            self.records[role].append(("leaky_relu", piece))
+            return func(*args, **kwargs)
+        card = torch.empty_like(piece).copy_(self._next(role, "leaky_relu", x.shape))
+        self._count("leaky_relu", (piece != card).sum())
+        return torch.where(card == 1, x, x * slope)
+
+    def _recorded(self, role, name, func, args, kwargs, replay):
+        """argmax / rand: replayed as the recorded values (on this run's
+        device), argmax's elements that differ counted."""
+        import torch
+
+        out = func(*args, **kwargs)
+        if not replay:
+            self.records[role].append((name, out.detach().clone()))
+            return out
+        card = self._next(role, name, out.shape).to(device=out.device, dtype=out.dtype)
+        if name == "argmax":  # another run's rand draws differ from the card's by design
+            self._count(name, (out != card).sum())
+        return torch.empty_like(out).copy_(card)
+
     def _pool(self, role, func, args, kwargs, replay):
         import torch
         import torch.nn.functional as F
@@ -2245,12 +2314,15 @@ def f64_reference_step(config, batch, schedule=None, select=None, branches=None,
     reports both), so the CPU's float32 is no reference. `select` replaces
     the loss's `select` (PSE/PAN: the masks it thresholds out of the
     predictions); `branches` (a recorded Branches) makes its forward, and
-    with `loss_pieces` its loss, take the card's pieces; `prepare(model)`
-    changes the seeded weights first, as card_step's does."""
+    with `loss_pieces` its loss, take the card's pieces (SLAHead's coins
+    and fed-back tokens too: a head that takes a generator gets one, whose
+    draws the card's replace); `prepare(model)` changes the seeded weights
+    first, as card_step's does."""
     import torch
 
     from pytorchocr_tpu_torch.losses import build_loss
-    from pytorchocr_tpu_torch.trainer import batch_to_device, build_input_transform, float_preds
+    from pytorchocr_tpu_torch.trainer import (batch_to_device, build_input_transform, float_preds,
+                                              takes_generator)
 
     cpu = torch.device("cpu")
     model, opt, _ = train_parts(config, cpu, amp=False, schedule=schedule)
@@ -2264,7 +2336,8 @@ def f64_reference_step(config, batch, schedule=None, select=None, branches=None,
     transform = build_input_transform(
         config["Global"].get("_device_normalize_spec", {}).get("Train"))
     x = b[0] if transform is None else transform(b[0])
-    preds = model(x.double().permute(0, 3, 1, 2), data=b)
+    kw = {"generator": torch.Generator()} if takes_generator(model) else {}  # coins replayed
+    preds = model(x.double().permute(0, 3, 1, 2), data=b, **kw)
     loss = build_loss(config["Loss"])
     if select is not None:
         loss.select = select
@@ -2766,8 +2839,9 @@ def phase_train(dev, card, tmp):
         "train run's %.4f), %.2f pages/s on %s" % (metric["hmean"], best["hmean"], metric["fps"],
                                                     card))
 
-    say("train", "profiler, 4 train steps with their loader waits: %s on %s"
-        % (profile_loop(config, dev, metric=False, sums=("reduce_kernel", "batch_norm")), card))
+    say("train", "profiler, %d train steps with their loader waits: %s on %s"
+        % (PROFILE_STEPS, profile_loop(config, dev, metric=False,
+                                       sums=("reduce_kernel", "batch_norm")), card))
     say("train", "phase 11 took %.1f s" % (time.perf_counter() - t_phase))
     return k1, train_label, eval_label
 
@@ -2937,7 +3011,12 @@ def served_equals_eval(tag, kind, cfg_path, ckpt, label, dev, card, batch_size, 
     return got
 
 
-def profile_loop(config, dev, metric=True, sums=(), steps=4):
+# iterations of the training loop that profile_loop traces (4 before phase
+# 18 was added and the script needed the time)
+PROFILE_STEPS = 2
+
+
+def profile_loop(config, dev, metric=True, sums=(), steps=PROFILE_STEPS):
     """Card busy over `steps` iterations of the trainer's loop (device_time,
     with `sums`): the loader wait, the copy, the step and, with `metric`
     (cal_metric_during_train), the eval forward, post process and metric on
@@ -3185,8 +3264,8 @@ def phase_lines_train(dev, card, tmp, kind):
            config["Eval"]["loader"]["batch_size_per_card"], card))
     served_equals_eval(kind + "-serve", kind, os.path.join(out, "config.yml"), ckpt, eval_label,
                        dev, card, config["Eval"]["loader"]["batch_size_per_card"], torch.float32)
-    say(kind + "-train", "profiler, 4 iterations of the loop (loader wait, copy, step, "
-        "per-step metric): %s on %s" % (profile_loop(config, dev), card))
+    say(kind + "-train", "profiler, %d iterations of the loop (loader wait, copy, step, "
+        "per-step metric): %s on %s" % (PROFILE_STEPS, profile_loop(config, dev), card))
     say(kind + "-train", "phase %d took %.1f s" % (12 if rec else 13,
                                                   time.perf_counter() - t_phase))
     return train_label, eval_label, small
@@ -3494,8 +3573,9 @@ def phase_det_train(dev, card, tmp, kind, train_label, eval_label):
         "%.2f ms%s (CUDA events) on %s"
         % (spec["bs"], TRAIN_SIZE, TRAIN_SIZE, whole,
            "; the embedding loss alone %.2f ms" % emb if emb is not None else "", card))
-    say(kind + "-train", "profiler, 4 train steps with their loader waits: %s on %s"
-        % (profile_loop(config, dev, metric=False, sums=("batch_norm", "reduce_kernel")), card))
+    say(kind + "-train", "profiler, %d train steps with their loader waits: %s on %s"
+        % (PROFILE_STEPS, profile_loop(config, dev, metric=False,
+                                       sums=("batch_norm", "reduce_kernel")), card))
     say(kind + "-train", "phase %d took %.1f s" % (spec["phase"], time.perf_counter() - t_phase))
     return launches
 
@@ -4008,6 +4088,484 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
     say("zoo-train", "phase 17 took %.1f s" % (time.perf_counter() - t_phase))
     return k1
 
+TABLE_CH_CFG = os.path.join(REPO, "configs", "table", "table_sla_ch.yml")
+TABLE_TRAIN_CFG = os.path.join(REPO, "configs", "table", "table_sla_synth.yml")
+# phase 18: drawn tables (train, eval; eval one batch of table_sla_ch.yml's
+# 48), the float32 serving comparison's tables, the steps of
+# tools.train.run (4 epochs of 10 batches of 16), the loss check (the mean
+# of the last 10 steps under this share of the first 10's), and the
+# decoded boxes' tolerance between the card and the CPU in source pixels
+TABLE_TRAIN, TABLE_EVAL, TABLE_F32_N, TABLE_STEPS, TABLE_FALL = 160, 48, 8, 40, 0.7
+TABLE_BOX_TOL = 1e-3  # px; 0.05 until the card read 6.1e-5 in four runs
+TABLE_MIN_TOKENS = 20  # the seeded decode: tokens before eos on most tables
+# phase 18's convergence check, written down in PERF.md before the first
+# card run: one fixed batch of 8 drawn tables (table_sla_synth.yml's train
+# chain, which has no augmentation), bf16, Adam at a constant LR, the
+# config's scheduled sampling and aux count kept; the eval forward's greedy
+# decode must read back at least 7 of the 8 structures exactly (TableMetric's
+# acc) within the cap, read every TABLE_OVERFIT_EVERY steps; the untrained
+# model must fail the same reading. The cap was 600 for the first two card
+# runs, which read 7 of 8 at step 125 both times (a step takes ~0.55 s)
+TABLE_OVERFIT_N, TABLE_OVERFIT_HITS, TABLE_OVERFIT_LR = 8, 7, 2e-3
+TABLE_OVERFIT_CAP, TABLE_OVERFIT_EVERY = 300, 25
+# the fixed batch's decode: 81 steps (its tables need at most 70). At the
+# published 161 it read 7 of 8 at step 125 in each of five card runs, and a
+# step's launches, which bound it, follow the decode's length
+TABLE_OVERFIT_LEN = 80
+
+
+def make_tables(dirname, n, seed):
+    """`n` tables drawn with cv2 (no font files): 2-8 rows and 2-6 columns,
+    a header row (thead, ruled off) on most, a colspan of 2 in some headers,
+    empty cells, Hershey text; and their PubTabNet jsonl (xyxyxyxy boxes of
+    each non-empty cell's text; empty cells carry no box)."""
+    import cv2
+    import numpy as np
+
+    os.makedirs(dirname, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    lines = []
+    for t in range(n):
+        rows, cols = int(rng.randint(2, 9)), int(rng.randint(2, 7))
+        cw, ch, pad = int(rng.randint(56, 96)), int(rng.randint(22, 34)), 10
+        h, w = rows * ch + 2 * pad, cols * cw + 2 * pad
+        img = np.full((h, w, 3), int(rng.randint(215, 256)), np.uint8)
+        ink = tuple(int(v) for v in rng.randint(0, 80, 3))
+        grid = rng.rand() < 0.5
+        header = rng.rand() < 0.7
+        span = header and cols >= 3 and rng.rand() < 0.4
+        span_at = int(rng.randint(0, cols - 1)) if span else -1
+        scale = float(rng.uniform(0.35, 0.5))
+        tokens, cells = [], []
+        for r in range(rows):
+            if r == 0:
+                tokens += ["<thead>"] if header else ["<tbody>"]
+            elif r == 1 and header:
+                tokens += ["<tbody>"]
+            tokens.append("<tr>")
+            c = 0
+            while c < cols:
+                wide = r == 0 and c == span_at
+                x0, x1 = pad + c * cw, pad + (c + (2 if wide else 1)) * cw
+                y0, y1 = pad + r * ch, pad + (r + 1) * ch
+                tokens += ["<td", ' colspan="2"', ">", "</td>"] if wide else ["<td>", "</td>"]
+                if grid:
+                    cv2.rectangle(img, (x0, y0), (x1, y1), ink, 1)
+                if rng.rand() < 0.15 and r > 0:
+                    cells.append({"tokens": []})
+                else:
+                    k = int(rng.randint(1, max(2, (x1 - x0 - 8) // 9)))
+                    text = "".join(rng.choice(list(ALNUM), k))
+                    (tw, th), base = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, scale, 1)
+                    tx, ty = x0 + 4, y0 + (ch + th) // 2
+                    cv2.putText(img, text, (tx, ty), cv2.FONT_HERSHEY_SIMPLEX, scale, ink, 1,
+                                cv2.LINE_AA)
+                    cells.append({"tokens": list(text), "bbox": [
+                        tx, ty - th, tx + tw, ty - th, tx + tw, ty + base, tx, ty + base]})
+                c += 2 if wide else 1
+            tokens.append("</tr>")
+            if r == 0 and header:
+                tokens.append("</thead>")
+                cv2.line(img, (pad, pad + ch), (w - pad, pad + ch), ink, 2)
+        tokens.append("</tbody>")
+        cv2.line(img, (pad, pad), (w - pad, pad), ink, 1)
+        cv2.line(img, (pad, h - pad), (w - pad, h - pad), ink, 1)
+        path = os.path.join(dirname, "table_%04d.png" % t)
+        cv2.imwrite(path, img)
+        lines.append(json.dumps({"img_path": path, "html": {
+            "cells": cells, "structure": {"tokens": tokens}}}))
+    label = os.path.join(dirname, "label.jsonl")
+    with open(label, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return label
+
+
+def table_config(cfg_path, eval_label):
+    """The table config as published (its head sized by the post process's
+    table), its eval pointed at drawn tables."""
+    from pytorchocr_tpu_torch.postprocess import build_post_process
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.tools.train import set_head_channels
+
+    config = program.preprocess(argv=["-c", cfg_path, "-o",
+                                      "Eval.dataset.label_file_list=[%s]" % eval_label])[0]
+    post = build_post_process(config["PostProcess"], config["Global"])
+    set_head_channels(config, post)
+    return config, post
+
+
+def tokens_to_eos(tokens, eos):
+    """Each row's steps before its first eos past step 0, where
+    TableLabelDecode stops."""
+    out = []
+    for row in tokens.tolist():
+        end = row.index(eos, 1) if eos in row[1:] else len(row)
+        out.append(row[:end])
+    return out
+
+
+def table_serve(dev, card, tmp, eval_label):
+    """Phase 18 (a): table_sla_ch.yml served with seeded weights through
+    program.evaluate (the module docstring)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.data import build_dataloader
+    from pytorchocr_tpu_torch.metrics import build_metric
+    from pytorchocr_tpu_torch.ops import int8_conv, propagate, requant, runmax
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.tools.train import build_train_model
+    from pytorchocr_tpu_torch.trainer import build_input_transform, make_eval_step
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+    from pytorchocr_tpu_torch.utils.seeded import decisive_sla_head_
+
+    t_start = time.perf_counter()
+    config, post = table_config(TABLE_CH_CFG, eval_label)
+    eos = post.dict["eos"]
+    steps = config["Architecture"]["Head"]["max_text_length"] + 1
+    loader, _ = build_dataloader(config, "Eval", get_logger(name="root"))
+    batches = list(loader)
+    check(len(batches) == 1 and len(batches[0][0]) == TABLE_EVAL, "table-serve: the eval loader "
+          "gave %s tables a batch" % [len(b[0]) for b in batches])
+    batch = batches[0]
+    # table_sla_ch.yml normalizes on the host: its images arrive as float32
+    norm = build_input_transform(config["Global"].get("_device_normalize_spec", {}).get(
+        "Eval")) or (lambda x: x.float())
+    model = build_train_model(config, dev)
+    with float32_on_card():
+        images = norm(torch.from_numpy(batch[0]).to(dev)).permute(0, 3, 1, 2)
+        td = [post.dict[t] for t in post.td_token if t in post.dict]
+        first_eos, td_share = decisive_sla_head_(model, images, eos, boxes=td,
+                                                 min_tokens=TABLE_MIN_TOKENS)
+    del images
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    t_seeded = time.perf_counter()
+
+    # float32 on the card (TF32 off) against the CPU on the first tables
+    cpu = torch.device("cpu")
+    model_cpu = build_train_model(config, cpu)
+    model_cpu.load_state_dict(state)
+    sub = [x[:TABLE_F32_N] for x in batch]
+    runs = []
+    with float32_on_card():
+        for m, d in ((model, dev), (model_cpu, cpu)):
+            preds = make_eval_step(m, input_transform=norm)(torch.from_numpy(sub[0]).to(d))
+            preds = {k: v.float().cpu() for k, v in preds.items()}
+            runs.append((preds, post(preds, sub)))
+    (p_card, r_card), (p_cpu, r_cpu) = runs
+    t_card, t_cpu = p_card["structure_probs"].argmax(-1), p_cpu["structure_probs"].argmax(-1)
+    top2 = p_cpu["structure_probs"].double().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    firsts, diff = [], 0.0
+    for i in range(TABLE_F32_N):
+        seq_cpu, seq_card = tokens_to_eos(t_cpu[i : i + 1], eos)[0], \
+            tokens_to_eos(t_card[i : i + 1], eos)[0]
+        differ = (t_card[i] != t_cpu[i]).nonzero()
+        d = int(differ[0]) if len(differ) else steps
+        if seq_cpu == seq_card:
+            d = max(d, len(seq_cpu) + 1)  # equal up to eos: later steps are not read
+        firsts.append(d)
+        upto = min(d, steps)
+        diff = max(diff, float((p_card["structure_probs"][i, :upto]
+                                - p_cpu["structure_probs"][i, :upto]).abs().max()))
+    excused, equal = 0, 0
+    for i, d in enumerate(firsts):
+        n_cpu = len(tokens_to_eos(t_cpu[i : i + 1], eos)[0])
+        if d > n_cpu:
+            equal += 1
+            continue
+        near = float(margin[i, : d + 1].min())
+        check(near <= 2 * diff, "table-serve-f32: table %d's token sequence differs from the "
+              "CPU's at step %d, the CPU's smallest top-2 margin up to there %.3g (2x the largest "
+              "probability difference before it: %.3g)" % (i, d, near, 2 * diff))
+        excused += 1
+    box_err, boxes = 0.0, 0
+    td = set(td)
+    for i, d in enumerate(firsts):
+        a, b = r_card[0]["bbox_batch_list"][i], r_cpu[0]["bbox_batch_list"][i]
+        # the boxes of the td steps that both runs decode alike (before the first difference)
+        n_td = sum(c in td for c in tokens_to_eos(t_cpu[i : i + 1], eos)[0][:d])
+        check(len(a) >= n_td and len(b) >= n_td, "table-serve-f32: table %d decoded %d and %d "
+              "td boxes, %d steps alike" % (i, len(a), len(b), n_td))
+        if n_td:
+            box_err = max(box_err, float(np.abs(np.asarray(a[:n_td]) - np.asarray(b[:n_td]))
+                                     .max()))
+            boxes += n_td
+    check(box_err <= TABLE_BOX_TOL, "table-serve-f32: decoded td boxes %.4g px apart (tolerance "
+          "%g px)" % (box_err, TABLE_BOX_TOL))
+    lengths = [len(x) for x in tokens_to_eos(t_cpu, eos)]
+    long = sum(n >= TABLE_MIN_TOKENS for n in lengths)
+    check(long >= (3 * TABLE_F32_N) // 4, "table-serve: the seeded decode gives %s tokens before "
+          "eos (at least %d on %d of %d tables wanted)" % (lengths, TABLE_MIN_TOKENS,
+                                                           (3 * TABLE_F32_N) // 4, TABLE_F32_N))
+    say("table-serve-f32", "table_sla_ch.yml (PPLCNet x1.0, CSPPAN 96, SLAHead 256, %d classes, "
+        "%d decode steps at 480x480) with seeded weights and the decisive head "
+        "(utils.seeded.decisive_sla_head_: eos's first win at steps %s on the %d tables, td "
+        "tokens raised to %.2f of the steps), float32 "
+        "on the card (TF32 off) against the CPU on %d tables: token sequences equal up to eos on "
+        "%d, %d excused (they differ only after a step whose CPU top-2 margin is within 2x the "
+        "largest probability difference before it, %.3g), tokens before eos %s; decoded td "
+        "boxes %.4g px apart at most over %d boxes (tolerance %g px); %s"
+        % (len(post.character), steps, first_eos[:TABLE_F32_N], TABLE_EVAL, td_share,
+           TABLE_F32_N, equal,
+           excused, 2 * diff, lengths, box_err, boxes, TABLE_BOX_TOL, card))
+    del model_cpu
+    t_f32 = time.perf_counter()
+
+    # the bf16 main path: program.evaluate over the 48 tables, one batch
+    runmax.launches = propagate.launches = int8_conv.launches = requant.launches = 0
+    eval_step = make_eval_step(model, input_transform=norm, amp=True)
+    metric_class = build_metric(config["Metric"])
+    eval_step(torch.from_numpy(batch[0]).to(dev))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metric = program.evaluate(eval_step, loader, post, metric_class, "table", dev)
+    wall = time.perf_counter() - t0
+    ours = (runmax.launches, propagate.launches, int8_conv.launches, requant.launches)
+    check(ours == (0, 0, 0, 0), "table-serve: the table path launched the port's kernels %s"
+          % (ours,))
+    images = torch.from_numpy(batch[0]).to(dev)
+    marks = {}
+
+    def mark(name):
+        def hook(*args):
+            marks[name] = torch.cuda.Event(enable_timing=True)
+            marks[name].record()
+        return hook
+
+    hooks = [model.head.register_forward_pre_hook(mark("head0")),
+             model.head.register_forward_hook(mark("head1"))]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    preds = eval_step(images)
+    end.record()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    fwd_ms, head_ms = start.elapsed_time(end), marks["head0"].elapsed_time(marks["head1"])
+    decoded = post(preds, batch)[0]["structure_batch_list"]
+    n_tokens = [len(x) for x, _ in decoded]
+    def encoder():
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model.eval()
+            model.neck(model.backbone(norm(images).permute(0, 3, 1, 2)))
+
+    t1 = time.perf_counter()
+    eval_step(images)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t1
+    events = card_events(lambda: eval_step(images))
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # the head's launches: the backbone's and the neck's taken out
+    launches = sum(e.count for e in events) - sum(e.count for e in card_events(encoder))
+    busy = "card busy %.1f ms of a %.1f ms call (%.1f%%, torch.profiler)" % (
+        busy_ms, 1e3 * call_s, 100.0 * busy_ms / (1e3 * call_s))
+    say("table-serve", "bf16 (the config's use_amp) through program.evaluate (the port's eval "
+        "CLI path) on %d tables, one batch of %d: %.2f tables/s (the evaluate's forward and "
+        "sync), %.2f tables/s over the call (%.3f s, the post process and metric included); "
+        "acc %.4f, token_acc %.4f (seeded weights); tokens decoded per table %d-%d (mean %.1f); "
+        "the decode loop %.1f of the forward's %.1f ms (%.1f%%, CUDA events around the head); "
+        "%d kernel launches in the head's %d steps, %.1f a step (torch.profiler); %s; the "
+        "port's four kernels launched 0 times on this path; %s"
+        % (TABLE_EVAL, TABLE_EVAL, metric["fps"], TABLE_EVAL / wall, wall, metric["acc"],
+           metric["token_acc"], min(n_tokens), max(n_tokens), float(np.mean(n_tokens)), head_ms,
+           fwd_ms, 100.0 * head_ms / fwd_ms, launches, steps, launches / steps, busy, card))
+    say("table-serve", "took %.1f s: the seeded model and its decisive head %.1f s, the float32 "
+        "comparison %.1f s, the bf16 runs %.1f s" % (
+            time.perf_counter() - t_start, t_seeded - t_start, t_f32 - t_seeded,
+            time.perf_counter() - t_f32))
+    return copy.deepcopy(metric)
+
+
+def table_overfit(dev, card, tmp):
+    """Phase 18 (c): the convergence check (the constants above), the
+    untrained model's reading failing it, and the checkpoint read by the
+    eval CLI's entry point. The config is table_sla_synth.yml with its
+    decode cut to TABLE_OVERFIT_LEN steps (the drawn tables' structures
+    take at most 68 tokens; a train step's cost follows the decode's
+    length: its launches bound it)."""
+    import torch
+
+    from pytorchocr_tpu_torch.metrics import build_metric
+    from pytorchocr_tpu_torch.postprocess import build_post_process
+    from pytorchocr_tpu_torch.tools import eval as eval_cli
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.tools.train import set_head_channels
+    from pytorchocr_tpu_torch.trainer import (batch_to_device, build_input_transform,
+                                              make_eval_step)
+    from pytorchocr_tpu_torch.utils.config import load_config, save_config
+    from pytorchocr_tpu_torch.utils.save_load import save_model
+
+    tag = "table-overfit"
+    label = make_tables(os.path.join(tmp, tag), TABLE_OVERFIT_N, SEED + 83)
+    written = load_config(TABLE_TRAIN_CFG)
+    written["Global"]["max_text_length"] = TABLE_OVERFIT_LEN
+    written["Architecture"]["Head"]["max_text_length"] = TABLE_OVERFIT_LEN
+    for mode in ("Train", "Eval"):
+        written[mode]["dataset"]["label_file_list"] = [label]
+        for op in written[mode]["dataset"]["transforms"]:
+            if "TableLabelEncode" in op:
+                op["TableLabelEncode"]["max_text_length"] = TABLE_OVERFIT_LEN
+    cfg_path = os.path.join(tmp, tag + ".yml")
+    save_config(written, cfg_path)
+    cfg = program.preprocess(argv=["-c", cfg_path])[0]
+    set_head_channels(cfg, build_post_process(cfg["PostProcess"], cfg["Global"]))
+    cfg["Optimizer"] = {"base_lr": TABLE_OVERFIT_LR, "optim": {"name": "Adam"}}
+    raw = first_batches(cfg, 1, TABLE_OVERFIT_N, label)[0]
+    check(len(raw[0]) == TABLE_OVERFIT_N, "%s: a batch of %d tables" % (tag, len(raw[0])))
+    batch = batch_to_device(raw, dev)
+    post = build_post_process(cfg["PostProcess"], cfg["Global"])
+    metric = build_metric(cfg["Metric"])
+    model, opt, step = train_parts(cfg, dev, amp=True, schedule=(TABLE_OVERFIT_CAP, 1))
+    eval_step = make_eval_step(model, build_input_transform(
+        cfg["Global"]["_device_normalize_spec"].get("Eval")), amp=True)
+
+    def reading():
+        metric(post(eval_step(batch[0]), raw), raw)
+        out = metric.get_metric()
+        return int(round(out["acc"] * TABLE_OVERFIT_N)), out["token_acc"]
+
+    untrained = reading()
+    check(untrained[0] < TABLE_OVERFIT_HITS, "%s: the untrained model reads back %d of %d "
+          "structures: the check cannot fail" % (tag, untrained[0], TABLE_OVERFIT_N))
+    curve, done, hits = [], 0, untrained
+    t0 = time.perf_counter()
+    while done < TABLE_OVERFIT_CAP and hits[0] < TABLE_OVERFIT_HITS:
+        for _ in range(TABLE_OVERFIT_EVERY):
+            losses = step(batch)
+        done += TABLE_OVERFIT_EVERY
+        hits = reading()
+        curve.append((done, float(losses["loss"]), hits[0], hits[1]))
+    secs = time.perf_counter() - t0
+    say(tag, "one fixed batch of %d drawn tables (table_sla_synth.yml's chain, no "
+        "augmentation, the decode cut to %d steps), bf16, Adam at LR %g, scheduled sampling %g "
+        "and aux count as published: "
+        "%d of %d structures read back exactly (eval-mode greedy decode, TableMetric's acc) "
+        "after %d steps (threshold %d within %d; untrained: %d, token_acc %.4f), %.1f s (%.2f "
+        "steps/s with the reads); loss, structures and token_acc every %d steps: %s on %s"
+        % (TABLE_OVERFIT_N, TABLE_OVERFIT_LEN + 1, TABLE_OVERFIT_LR,
+           cfg["Architecture"]["Head"]["scheduled_sampling_p"],
+           hits[0], TABLE_OVERFIT_N, done, TABLE_OVERFIT_HITS, TABLE_OVERFIT_CAP, untrained[0],
+           untrained[1], secs, done / secs, TABLE_OVERFIT_EVERY,
+           ", ".join("%d: %.3f %d %.3f" % c for c in curve[:: max(1, len(curve) // 12)]), card))
+    check(hits[0] >= TABLE_OVERFIT_HITS, "%s: %d of %d structures read back after %d steps (at "
+          "least %d within %d)" % (tag, hits[0], TABLE_OVERFIT_N, done, TABLE_OVERFIT_HITS,
+                                   TABLE_OVERFIT_CAP))
+    out = os.path.join(tmp, tag + "_out")
+    save_model(model, opt, {"start_epoch": 1, "global_step": done, "best_model": {}}, out,
+               prefix="best_accuracy")
+    cli = eval_cli.run(["-c", cfg_path, "-o",
+                        "Global.checkpoints=%s" % os.path.join(out, "best_accuracy")])
+    # token_acc is a mean over the tables, summed here in the train loader's order
+    check(round(cli["acc"] * TABLE_OVERFIT_N) == hits[0] and abs(cli["token_acc"] - hits[1])
+          <= 1e-9,
+          "%s: python -m pytorchocr_tpu_torch.tools.eval reads acc %.4f, token_acc %.6f; the "
+          "loop read %d of %d, %.6f" % (tag, cli["acc"], cli["token_acc"], hits[0],
+                                        TABLE_OVERFIT_N, hits[1]))
+    say(tag + "-eval", "tools.eval.run (what python -m pytorchocr_tpu_torch.tools.eval runs) on "
+        "that checkpoint: acc %.4f (%d of %d), token_acc %.4f, the loop's reading; %.1f tables/s"
+        % (cli["acc"], hits[0], TABLE_OVERFIT_N, cli["token_acc"], cli["fps"]))
+
+
+def phase_table(dev, card, tmp):
+    """Phase 18: SLANet on the card (the module docstring)."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.postprocess import build_post_process
+    from pytorchocr_tpu_torch.tools import eval as eval_cli
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.tools import train as train_cli
+    from pytorchocr_tpu_torch.tools.train import set_head_channels
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+
+    t_phase = time.perf_counter()
+    logger = get_logger(name="root")
+    for h in logger.handlers:
+        h.setLevel(logging.WARNING)
+    train_label = make_tables(os.path.join(tmp, "tables_train"), TABLE_TRAIN, SEED + 81)
+    eval_label = make_tables(os.path.join(tmp, "tables_eval"), TABLE_EVAL, SEED + 82)
+    say("table-data", "%d train and %d eval tables drawn with cv2 (2-8 rows, 2-6 columns, "
+        "headers, colspans, empty cells, Hershey text) in %.1f s"
+        % (TABLE_TRAIN, TABLE_EVAL, time.perf_counter() - t_phase))
+
+    parts = {}
+
+    def part(name, t):
+        parts[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    # (a) serving table_sla_ch.yml
+    table_serve(dev, card, tmp, eval_label)
+    t = part("serve", t)
+
+    # (b) training table_sla_synth.yml as published
+    per_epoch = TABLE_TRAIN // 16
+    epochs = TABLE_STEPS // per_epoch
+    schedule = (epochs, per_epoch)
+    out = os.path.join(tmp, "table_train_out")
+    argv = train_argv(out, train_label, eval_label, epochs, TABLE_TRAIN_CFG)
+    config = program.preprocess(is_train=True, argv=argv)[0]
+    set_head_channels(config, build_post_process(config["PostProcess"], config["Global"]))
+    check(config["Train"]["loader"]["batch_size_per_card"] == 16, "table-train: bs %s"
+          % config["Train"]["loader"]["batch_size_per_card"])
+    small = os.path.join(tmp, "tables_train", "first.jsonl")
+    with open(small, "w") as f:
+        f.write("".join(open(train_label).readlines()[: 2 * 2]))
+    batches = first_batches(config, 2, 2, small)
+    compare_f32_step(config, dev, batches[0], card, what="bs 2, 480x480, 161 decode steps, "
+                     "scheduled sampling 0.25 (the card's coins and fed-back tokens replayed)",
+                     tag="table-f32", schedule=schedule, zero_grad=bn_fed_biases,
+                     focus="head.decode.rnn.", card_floors=True, loss_pieces=True)
+    t = part("f32 step", t)
+    checkpoint_round_trip(config, dev, batches, tmp, tag="table-ckpt", schedule=schedule)
+    t = part("round trip", t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    report = train_cli.run(argv)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = report["losses"]
+    check(report["steps"] == TABLE_STEPS and len(losses) == TABLE_STEPS,
+          "table-train: %d steps, not %d" % (report["steps"], TABLE_STEPS))
+    check(bool(np.isfinite(losses).all()), "table-train: a loss is not finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < TABLE_FALL * first, "table-train: the mean loss of the last 10 steps %.4f is "
+          "not under %g of the first 10's %.4f" % (last, TABLE_FALL, first))
+    best = report["best"]
+    say("table-train", "table_sla_synth.yml as published (PPLCNet x1.0, CSPPAN 96, SLAHead 256, "
+        "161 steps, aux count, scheduled sampling 0.25, label smoothing 0.1, bs 16 at 480x480, "
+        "bf16 autocast, amsgrad + WarmupPolyLR, 8 loader threads) through tools.train.run: %d "
+        "steps (%d epochs of %d drawn tables); mean loss of the first 10 steps %.4f, of the last "
+        "10 %.4f (%.3f of it; the check: under %g); loss every 4 steps: %s; the eval on %d "
+        "tables: %s; peak memory %.2f GB (max_memory_allocated)"
+        % (report["steps"], epochs, TABLE_TRAIN, first, last, last / first, TABLE_FALL,
+           ", ".join("%.3f" % v for v in losses[::4]), TABLE_EVAL,
+           ", ".join("%s %.4f" % (k, v) for k, v in best.items() if k != "best_model_epoch"),
+           peak))
+    report_lines_train("table-train", report, run_s, card)
+    ckpt = os.path.join(out, "best_accuracy")
+    metric = eval_cli.run(argv + ["Global.checkpoints=%s" % ckpt])
+    keys = ("acc", "token_acc")
+    check(all(metric[k] == best[k] for k in keys), "table-eval: tools.eval.run gives %s, the "
+          "train run logged %s" % ([metric[k] for k in keys], [best[k] for k in keys]))
+    say("table-eval", "tools.eval.run on best_accuracy: acc %.4f, token_acc %.4f, equal to the "
+        "train run's; %.2f tables/s (forward and sync, bs 16) on %s"
+        % (metric["acc"], metric["token_acc"], metric["fps"], card))
+    t = part("train and eval CLIs", t)
+
+    # (c) the fixed-batch convergence check
+    table_overfit(dev, card, tmp)
+    part("convergence", t)
+    say("table", "phase 18 took %.1f s: %s" % (time.perf_counter() - t_phase, ", ".join(
+        "%s %.1f s" % kv for kv in parts.items())))
+
 
 def forbidden_modules():
     """Modules of JAX, flax or the JAX package that this process loaded: the
@@ -4033,6 +4591,9 @@ def main():
     except ImportError as e:
         raise SystemExit("chip_smoke FAILED: run it from a checkout of the repo (%s)" % e)
 
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    if only not in (None, "18"):
+        raise SystemExit("chip_smoke FAILED: --only takes 18")
     dev = torch.device("cuda:0")
     card = card_line()
     say("device", "torch.cuda: %s; nvidia-smi: %s; torch %s, CUDA %s"
@@ -4047,6 +4608,13 @@ def main():
         say("time", "phase %s took %.1f s (all phases so far %.1f s)"
             % (name, times[name], time.perf_counter() - t0))
         return out
+
+    if only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase(18, phase_table, dev, card, tmp)
+        check(not forbidden_modules(), "the port imported %s" % forbidden_modules())
+        say("done", "phase 18 only: no result printed")
+        return
 
     int32_rate = int32_ops_per_s()
     k1 = phase("1-2", phase_kernels, dev, card, int32_rate)
@@ -4070,11 +4638,13 @@ def main():
         early = time.perf_counter() - t0
         zoo_k1 = phase(16, phase_zoo_serve, dev, card, tmp, pages, db)
         dbpp_train_k1 = phase(17, phase_zoo_train, dev, card, tmp, train_label, eval_label, lines)
+        late = time.perf_counter() - t0
+        phase(18, phase_table, dev, card, tmp)
     bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
     total = time.perf_counter() - t0
-    say("time", "phases 1-15 %.1f s, phases 16-17 %.1f s, all %.1f s"
-        % (early, total - early, total))
+    say("time", "phases 1-15 %.1f s, phases 16-17 %.1f s, phase 18 %.1f s, all %.1f s"
+        % (early, late - early, total - late, total))
     k1_paths = {"DB": db_k1, "PSE": pse_k1, "PAN": pan_k1, "int8 DB": q8_k1,
                 "train-eval": train_k1, "PSE-train-eval": pse_train[0],
                 "PAN-train-eval": pan_train[0], **zoo_k1, "DB++-train-eval": dbpp_train_k1}

@@ -4,17 +4,18 @@
 The per-rank shard comes from torch.distributed when a process group is
 initialised (the JAX package asks jax.process_index/count, :18-24); the port
 trains on one card, so it is (0, 1) until multi-GPU training (ROADMAP.md
-A.8). Only SimpleDataSet is ported; PubTabDataSet waits for A.13.
+A.8). SimpleDataSet (line files) and PubTabDataSet (PubTabNet jsonl tables).
 """
 
 import copy
 
 from .imaug import create_operators, transform
 from .loader import OCRDataLoader, default_collate
+from .pubtab_dataset import PubTabDataSet
 from .simple_dataset import SimpleDataSet
 
 __all__ = ["build_dataloader", "create_operators", "default_collate", "OCRDataLoader",
-           "SimpleDataSet", "transform"]
+           "PubTabDataSet", "SimpleDataSet", "transform"]
 
 
 def _process_info():
@@ -33,14 +34,13 @@ def build_dataloader(config, mode, logger, seed=None):
         # every rank must agree on the dataset order: default to the run seed
         seed = config["Global"].get("seed", 2022)
     module_name = config[mode]["dataset"]["name"]
-    if module_name == "PubTabDataSet":
-        raise NotImplementedError("PubTabDataSet is not ported yet (ROADMAP.md A.13)")
-    if module_name != "SimpleDataSet":
-        raise ValueError("DataSet only support ['SimpleDataSet', 'PubTabDataSet']")
+    datasets = {"SimpleDataSet": SimpleDataSet, "PubTabDataSet": PubTabDataSet}
+    if module_name not in datasets:
+        raise ValueError("DataSet only support %s" % list(datasets))
     if mode not in ("Train", "Eval", "Test"):
         raise ValueError("Mode should be Train, Eval or Test.")
 
-    dataset = SimpleDataSet(config, mode, logger, seed)
+    dataset = datasets[module_name](config, mode, logger, seed)
     loader_config = config[mode]["loader"]
     shard_index, num_shards = 0, 1
     if mode == "Train" and config["Global"].get("distributed", False):

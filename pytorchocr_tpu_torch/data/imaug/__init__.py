@@ -3,9 +3,9 @@
 pytorchocr_tpu/data/imaug/.
 
 Ported: the eval ops of the deploy entry points, the DB, PSE and PAN training
-chains (det_r18_db*.yml, det_r50_pse*.yml, det_r18_pan*.yml), and the CRNN
-and cls training chains (rec_vgg_bilstm_ctc*.yml, cls_mbv3small*.yml). Any
-other op of the
+chains (det_r18_db*.yml, det_r50_pse*.yml, det_r18_pan*.yml), the CRNN
+and cls training chains (rec_vgg_bilstm_ctc*.yml, cls_mbv3small*.yml) and
+the SLANet table chain (table_sla_*.yml). Any other op of the
 JAX registry raises NotImplementedError naming the ROADMAP.md item that
 ports it.
 """
@@ -13,7 +13,8 @@ ports it.
 from .color_jitter import ColorJitter
 from .fused_aug_crop import FusedDetAugCrop
 from .iaa_augment import IaaAugment
-from .label_ops import ClsLabelEncode, CTCLabelEncode, DetLabelEncode
+from .label_ops import (ClsLabelEncode, CTCLabelEncode, DetLabelEncode, TableBoxEncode,
+                        TableLabelEncode)
 from .make_border_map import MakeBorderMap
 from .make_pan_gt import MakePanGt
 from .make_pse_gt import MakePseGt
@@ -23,20 +24,21 @@ from .operators import (DecodeImage, DetResizeForTest, KeepKeys, Normalize, Norm
 from .random_crop_data import EastRandomCropData, RandomCropImgMask
 from .randaugment import RandAugment
 from .rec_img_aug import ClsResizeImg, RecAug, RecResizeImg
+from .table_ops import PaddingTableImage, ResizeTableImage
 
 OPS = {op.__name__: op for op in (
     DecodeImage, ToTensor, Normalize, NormalizeImage, KeepKeys, DetResizeForTest,
     RecResizeImg, ClsResizeImg, DetLabelEncode, IaaAugment, EastRandomCropData,
     FusedDetAugCrop, MakeShrinkMap, MakeBorderMap, ClsLabelEncode, CTCLabelEncode, RecAug,
-    RandAugment, ColorJitter, MakePseGt, MakePanGt, RandomCropImgMask,
+    RandAugment, ColorJitter, MakePseGt, MakePanGt, RandomCropImgMask, TableLabelEncode,
+    TableBoxEncode, ResizeTableImage, PaddingTableImage,
 )}
 
 _LATER = dict(
     # training ops that no config of the repo uses
     {name: "A.15" for name in ("CopyPaste", "Resize", "ToCHWImage")},
     AttnLabelEncode="A.11",
-    RecResizeImgForTest="A.6", TableLabelEncode="A.13",
-    TableBoxEncode="A.13", ResizeTableImage="A.13", PaddingTableImage="A.13",
+    RecResizeImgForTest="A.6",
 )
 
 

@@ -1,7 +1,8 @@
 """Label encoders — the port's copy of ClsLabelEncode, DetLabelEncode,
-BaseRecLabelEncode and CTCLabelEncode
-(pytorchocr_tpu/data/imaug/label_ops.py:11,25,54,115). AttnLabelEncode
-waits for STAR-Net (ROADMAP.md A.11).
+BaseRecLabelEncode, CTCLabelEncode, TableLabelEncode and TableBoxEncode
+(pytorchocr_tpu/data/imaug/label_ops.py:11,25,54,115,180,345).
+AttnLabelEncode waits for ROADMAP.md A.11; TableLabelEncode carries the
+special characters it would inherit from it.
 """
 
 import json
@@ -136,3 +137,219 @@ class CTCLabelEncode(BaseRecLabelEncode):
 
     def add_special_char(self, dict_character):
         return ["blank"] + dict_character
+
+
+class TableLabelEncode:
+    """Table structure tokens -> `structure` (sos, the token indices, eos,
+    padded with sos to max_text_length + 2; None when longer), per-token
+    cell boxes `bboxes` (loc_reg_num each) and `bbox_masks`, and the aux
+    count targets `row_cnt` / `col_cnt` (clipped at 31). The table is the
+    dictionary's lines (with merge_no_span_structure "<td></td>" in place
+    of "<td>") between "sos" and "eos", as AttnLabelEncode adds them
+    (label_ops.py:146-178). From label_ops.py:180."""
+
+    def __init__(
+        self,
+        max_text_length,
+        character_dict_path,
+        replace_empty_cell_token=False,
+        merge_no_span_structure=False,
+        learn_empty_box=False,
+        loc_reg_num=4,
+        **kwargs
+    ):
+        self.max_text_len = max_text_length
+        self.learn_empty_box = learn_empty_box
+        self.merge_no_span_structure = merge_no_span_structure
+        self.replace_empty_cell_token = replace_empty_cell_token
+        self.beg_str = "sos"
+        self.end_str = "eos"
+
+        dict_character = []
+        with open(resolve_dict_path(character_dict_path), "rb") as fin:
+            for line in fin.readlines():
+                line = line.decode("UTF-8").strip("\n").strip("\r\n")
+                dict_character.append(line)
+
+        if self.merge_no_span_structure:
+            if "<td></td>" not in dict_character:
+                dict_character.append("<td></td>")
+            if "<td>" in dict_character:
+                dict_character.remove("<td>")
+
+        dict_character = self.add_special_char(dict_character)
+        self.dict = {char: i for i, char in enumerate(dict_character)}
+        self.idx2char = {v: k for k, v in self.dict.items()}
+        self.character = dict_character
+        self.loc_reg_num = loc_reg_num
+        self.pad_idx = self.dict[self.beg_str]
+        self.start_idx = self.dict[self.beg_str]
+        self.end_idx = self.dict[self.end_str]
+
+        self.td_token = ["<td>", "<td", "<eb></eb>", "<td></td>"]
+        self.empty_bbox_token_dict = {
+            "[]": "<eb></eb>",
+            "[' ']": "<eb1></eb1>",
+            "['<b>', ' ', '</b>']": "<eb2></eb2>",
+            "['\\u2028', '\\u2028']": "<eb3></eb3>",
+            "['<sup>', ' ', '</sup>']": "<eb4></eb4>",
+            "['<b>', '</b>']": "<eb5></eb5>",
+            "['<i>', ' ', '</i>']": "<eb6></eb6>",
+            "['<b>', '<i>', '</i>', '</b>']": "<eb7></eb7>",
+            "['<b>', '<i>', ' ', '</i>', '</b>']": "<eb8></eb8>",
+            "['<i>', '</i>']": "<eb9></eb9>",
+            "['<b>', ' ', '\\u2028', ' ', '\\u2028', ' ', '</b>']": "<eb10></eb10>",
+        }
+
+    def add_special_char(self, dict_character):
+        return [self.beg_str] + dict_character + [self.end_str]
+
+    @property
+    def _max_text_len(self):
+        return self.max_text_len + 2
+
+    def __call__(self, data):
+        cells = data["cells"]
+        structure = data["structure"]
+        if self.merge_no_span_structure:
+            structure = self._merge_no_span_structure(structure)
+        if self.replace_empty_cell_token:
+            structure = self._replace_empty_cell_token(structure, cells)
+        new_structure = []
+        for token in structure:
+            if token != "":
+                if "span" in token and token[0] != " ":
+                    token = " " + token
+                new_structure.append(token)
+        structure = self.encode(new_structure)
+        if structure is None:
+            return None
+        # auxiliary row/column-count supervision targets (SLAHead
+        # aux_count branch): rows = closed <tr>s; cols = column count of
+        # the first row, with colspan attributes widening their cell.
+        # Emitted unconditionally (scalars are ~free); configs opt in by
+        # listing row_cnt/col_cnt in keep_keys.
+        rows = new_structure.count("</tr>")
+        cols = 0
+        for token in new_structure:
+            if token == "</tr>":
+                break
+            if token in self.td_token:
+                cols += 1
+            elif "colspan" in token:
+                try:
+                    cols += int(token.split('"')[1]) - 1
+                except (IndexError, ValueError):
+                    pass
+        data["row_cnt"] = np.int32(min(rows, 31))
+        data["col_cnt"] = np.int32(min(cols, 31))
+        structure = [self.start_idx] + structure + [self.end_idx]
+        structure = structure + [self.pad_idx] * (self._max_text_len - len(structure))
+        structure = np.array(structure)
+        data["structure"] = structure
+        if len(structure) > self._max_text_len:
+            return None
+
+        bboxes = np.zeros((self._max_text_len, self.loc_reg_num), dtype=np.float32)
+        bbox_masks = np.zeros((self._max_text_len, 1), dtype=np.float32)
+        bbox_idx = 0
+        for i, token in enumerate(structure):
+            if self.idx2char[int(token)] in self.td_token:
+                if "bbox" in cells[bbox_idx] and len(cells[bbox_idx]["tokens"]) > 0:
+                    bbox = np.array(
+                        cells[bbox_idx]["bbox"], dtype=np.float32
+                    ).reshape(-1)
+                    bboxes[i] = bbox
+                    bbox_masks[i] = 1.0
+                if self.learn_empty_box:
+                    bbox_masks[i] = 1.0
+                bbox_idx += 1
+        data["bboxes"] = bboxes
+        data["bbox_masks"] = bbox_masks
+        return data
+
+    def encode(self, structure_tokens):
+        """Token-list variant of BaseRecLabelEncode.encode: table structure
+        labels are lists of tokens, not character strings."""
+        if len(structure_tokens) == 0 or len(structure_tokens) > self.max_text_len:
+            return None
+        out = []
+        for token in structure_tokens:
+            if token not in self.dict:
+                get_logger().warning("{} is not in dict".format(token))
+                continue
+            out.append(self.dict[token])
+        if len(out) == 0:
+            return None
+        return out
+
+    def _merge_no_span_structure(self, structure):
+        new_structure = []
+        i = 0
+        while i < len(structure):
+            token = structure[i]
+            if token == "<td>":
+                token = "<td></td>"
+                i += 1
+            new_structure.append(token)
+            i += 1
+        return new_structure
+
+    def _replace_empty_cell_token(self, token_list, cells):
+        bbox_idx = 0
+        out = []
+        for token in token_list:
+            if token in ["<td></td>", "<td", "<td>"]:
+                if "bbox" not in cells[bbox_idx]:
+                    content = str(cells[bbox_idx]["tokens"])
+                    token = self.empty_bbox_token_dict[content]
+                out.append(token)
+                bbox_idx += 1
+            else:
+                out.append(token)
+        return out
+
+
+class TableBoxEncode:
+    """Normalize table cell bboxes to the resized image. From
+    label_ops.py:345."""
+
+    def __init__(self, in_box_format="xyxy", out_box_format="xyxy", **kwargs):
+        assert out_box_format in ["xywh", "xyxy", "xyxyxyxy"]
+        self.in_box_format = in_box_format
+        self.out_box_format = out_box_format
+
+    def __call__(self, data):
+        src_h, src_w, ratio_h, ratio_w, dst_h, dst_w = data["shape"]
+        bboxes = data["bboxes"]
+        if self.in_box_format != self.out_box_format:
+            if self.out_box_format == "xywh":
+                if self.in_box_format == "xyxyxyxy":
+                    bboxes = self.xyxyxyxy2xywh(bboxes)
+                elif self.in_box_format == "xyxy":
+                    bboxes = self.xyxy2xywh(bboxes)
+        bboxes[:, 0::2] *= ratio_w
+        bboxes[:, 1::2] *= ratio_h
+        bboxes[:, 0::2] /= dst_w
+        bboxes[:, 1::2] /= dst_h
+        data["bboxes"] = bboxes
+        return data
+
+    @staticmethod
+    def xyxyxyxy2xywh(bboxes):
+        # per-box extent (axis=1), as the JAX package computes it
+        new_bboxes = np.zeros([len(bboxes), 4])
+        new_bboxes[:, 0] = bboxes[:, 0::2].min(axis=1)
+        new_bboxes[:, 1] = bboxes[:, 1::2].min(axis=1)
+        new_bboxes[:, 2] = bboxes[:, 0::2].max(axis=1) - new_bboxes[:, 0]
+        new_bboxes[:, 3] = bboxes[:, 1::2].max(axis=1) - new_bboxes[:, 1]
+        return new_bboxes
+
+    @staticmethod
+    def xyxy2xywh(bboxes):
+        new_bboxes = np.empty_like(bboxes)
+        new_bboxes[:, 0] = (bboxes[:, 0] + bboxes[:, 2]) / 2
+        new_bboxes[:, 1] = (bboxes[:, 1] + bboxes[:, 3]) / 2
+        new_bboxes[:, 2] = bboxes[:, 2] - bboxes[:, 0]
+        new_bboxes[:, 3] = bboxes[:, 3] - bboxes[:, 1]
+        return new_bboxes

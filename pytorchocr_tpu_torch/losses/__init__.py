@@ -8,12 +8,13 @@ from .det_db_loss import DBLoss
 from .det_pan_loss import PANLoss
 from .det_pse_loss import PSELoss
 from .rec_ctc_loss import CTCLoss
+from .table_att_loss import SLALoss
 
 __all__ = ["build_loss"]
 
 _SUPPORTED = {"DBLoss": DBLoss, "PSELoss": PSELoss, "PANLoss": PANLoss, "CTCLoss": CTCLoss,
-              "ClsLoss": ClsLoss}
-_LATER = {"CombinedLoss": "A.12", "SLALoss": "A.13"}
+              "ClsLoss": ClsLoss, "SLALoss": SLALoss}
+_LATER = {"CombinedLoss": "A.12"}
 
 
 def build_loss(config):

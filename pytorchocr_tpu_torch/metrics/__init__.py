@@ -5,11 +5,13 @@ import copy
 from .cls_metric import ClsMetric
 from .det_metric import DetMetric
 from .rec_metric import RecMetric
+from .table_metric import TableMetric
 
 __all__ = ["build_metric"]
 
-_SUPPORTED = {"DetMetric": DetMetric, "RecMetric": RecMetric, "ClsMetric": ClsMetric}
-_LATER = {"DistillationMetric": "A.12", "TableMetric": "A.13"}
+_SUPPORTED = {"DetMetric": DetMetric, "RecMetric": RecMetric, "ClsMetric": ClsMetric,
+              "TableMetric": TableMetric}
+_LATER = {"DistillationMetric": "A.12"}
 
 
 def build_metric(config):

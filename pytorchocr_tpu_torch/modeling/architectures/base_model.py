@@ -4,6 +4,11 @@ pytorchocr_tpu/modeling/architectures/base_model.py.
 `build_base_model` runs the same channel-inference chain as the JAX version
 (:55-60): `Architecture.in_channels` feeds the transform (STAR-Net's TPS),
 whose `out_channels` feed the backbone. The input is NCHW.
+
+`forward(x, data=None, generator=None)`: the train step's torch.Generator
+(trainer.sample_generator) reaches a head that declares `takes_generator`
+(SLAHead's scheduled sampling) and no other module, as only the JAX head
+that asks for the "sample" rng reads it.
 """
 
 import copy
@@ -27,7 +32,7 @@ class BaseModel(nn.Module):
         self.head = head
         self.return_all_feats = return_all_feats
 
-    def forward(self, x, data=None):
+    def forward(self, x, data=None, generator=None):
         y = {}
         if self.transform is not None:
             x = self.transform(x)
@@ -36,7 +41,10 @@ class BaseModel(nn.Module):
         if self.neck is not None:
             x = self.neck(x)
         y["neck_out"] = x
-        x = self.head(x, targets=data)
+        if getattr(self.head, "takes_generator", False):
+            x = self.head(x, targets=data, generator=generator)
+        else:
+            x = self.head(x, targets=data)
         if isinstance(x, dict):
             y.update(x)
         else:

@@ -2,6 +2,7 @@
 
 from ..registry import build
 from .det_mobilenet_v3 import MobileNetV3 as DetMobileNetV3
+from .det_pplcnet import PPLCNet
 from .det_repvgg import RepVGG
 from .det_resnet import ResNet
 from .det_shufflenet_v2 import ShuffleNetV2
@@ -11,8 +12,8 @@ from .rec_vgg import VGG
 __all__ = ["build_backbone"]
 
 _DET = {"ResNet": ResNet, "MobileNetV3": DetMobileNetV3, "ShuffleNetV2": ShuffleNetV2,
-        "RepVGG": RepVGG}
-_DET_LATER = {"ConvNeXt": "A.11", "SwinTransformer": "A.11", "PPLCNet": "A.13"}
+        "RepVGG": RepVGG, "PPLCNet": PPLCNet}
+_DET_LATER = {"ConvNeXt": "A.11", "SwinTransformer": "A.11"}
 _REC = {"VGG": VGG, "MobileNetV3": MobileNetV3}
 _REC_LATER = {"ResNet": "A.11"}
 

@@ -165,3 +165,20 @@ def resize_nearest(x, scale):
     if s == 1:
         return x
     return F.interpolate(x, scale_factor=s, mode="nearest")
+
+
+class SEModule(nn.Module):
+    """Squeeze-excitation, JAX modeling/common.py:183: the spatial mean, a
+    1x1 conv to channels // reduction (with bias), relu, a 1x1 conv back
+    (with bias), hard_sigmoid, and x scaled by it. Names `fc1`, `fc2` as
+    flax's."""
+
+    def __init__(self, channels, reduction=4):
+        super().__init__()
+        self.fc1 = nn.Conv2d(channels, channels // reduction, 1)
+        self.fc2 = nn.Conv2d(channels // reduction, channels, 1)
+
+    def forward(self, x):
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self.fc2(F.relu(self.fc1(s)))
+        return x * hard_sigmoid(s)

@@ -6,12 +6,13 @@ from .det_db_head import DBHead
 from .det_pan_head import PANHead
 from .det_pse_head import PSEHead
 from .rec_ctc_head import CTCHead
+from .table_att_head import SLAHead
 
 __all__ = ["build_head"]
 
 _HEADS = {"DBHead": DBHead, "PSEHead": PSEHead, "PANHead": PANHead, "CTCHead": CTCHead,
-          "ClsHead": ClsHead}
-_LATER = {"SLAHead": "A.13"}
+          "ClsHead": ClsHead, "SLAHead": SLAHead}
+_LATER = {}
 
 
 def build_head(config):

@@ -1,14 +1,16 @@
 """Neck registry — port of pytorchocr_tpu/modeling/necks/__init__.py."""
 
 from ..registry import build
+from .csp_pan import CSPPAN
 from .fpem_ffm import FPEM_FFM
 from .fpn import FPN
 from .rnn import SequenceEncoder
 
 __all__ = ["build_neck", "neck_out_channels"]
 
-_NECKS = {"FPN": FPN, "FPEM_FFM": FPEM_FFM, "SequenceEncoder": SequenceEncoder}
-_LATER = {"CSPPAN": "A.13"}
+_NECKS = {"FPN": FPN, "FPEM_FFM": FPEM_FFM, "SequenceEncoder": SequenceEncoder,
+          "CSPPAN": CSPPAN}
+_LATER = {}
 
 
 def build_neck(config):

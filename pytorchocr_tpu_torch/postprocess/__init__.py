@@ -7,7 +7,7 @@ __all__ = ["build_post_process"]
 _LATER = {
     "AttnLabelDecode": "A.11",
     "DistillationCTCLabelDecode": "A.12",
-    "DistillationDBPostProcess": "A.12", "TableLabelDecode": "A.13",
+    "DistillationDBPostProcess": "A.12",
 }
 
 
@@ -17,10 +17,11 @@ def build_post_process(config, global_config=None):
     from .pan_postprocess import PANPostProcess
     from .pse_postprocess import PSEPostProcess
     from .rec_postprocess import CTCLabelDecode
+    from .table_postprocess import TableLabelDecode
 
     support = {"DBPostProcess": DBPostProcess, "PSEPostProcess": PSEPostProcess,
                "PANPostProcess": PANPostProcess, "CTCLabelDecode": CTCLabelDecode,
-               "ClsPostProcess": ClsPostProcess}
+               "ClsPostProcess": ClsPostProcess, "TableLabelDecode": TableLabelDecode}
     config = copy.deepcopy(config)
     name = config.pop("name")
     if name == "None":

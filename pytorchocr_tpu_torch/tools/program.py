@@ -5,10 +5,11 @@ The loop, the eval gate (`eval_epoch_step`), the HighestAcc / FixedEpochStep
 checkpoints, the median-smoothed stats and the rank-0-only side effects are
 the JAX loop's. A train step is trainer.make_train_step on one card; the
 losses stay on the card and are read only at log steps, as the JAX loop
-fetches them. `Global.cal_metric_during_train` (rec and cls) runs the eval
+fetches them. `Global.cal_metric_during_train` (rec, cls and table) runs the eval
 forward on each train batch after its step, then the post process and the
-metric, every step, as the JAX loop does (:605-613); the post process reads
-the predictions on the host, so that step waits for the card.
+metric, every step, as the JAX loop does (:605-613; the table post process
+takes the whole batch, the others its labels); the post process reads the
+predictions on the host, so that step waits for the card.
 
 Not carried over (ROADMAP.md A.15): `steps_per_dispatch`, the bf16 "wire
 dtype" (the port sends uint8 images and float32 label maps to the card),
@@ -32,8 +33,8 @@ from ..utils.logging import get_logger, print_dict, process_rank
 from ..utils.save_load import save_model
 from ..utils.stats import TrainingStats
 
-SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "STARNet", "CLS"]
-_LATER_ALGS = {"Distillation": "A.12", "SLANet": "A.13"}
+SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "STARNet", "CLS", "SLANet"]
+_LATER_ALGS = {"Distillation": "A.12"}
 
 
 def set_random_seed(seed):
@@ -258,7 +259,8 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
 
             if cal_metric_during_train and model_type != "det":
                 metric_start = time.time()
-                post_result = post_process_class(eval_step(batch[0]), batch_np[1])
+                post_result = post_process_class(
+                    eval_step(batch[0]), batch_np if model_type == "table" else batch_np[1])
                 eval_class(post_result, batch_np)
                 train_stats.update(eval_class.get_metric())
                 report["metric_s"] += time.time() - metric_start
@@ -362,7 +364,8 @@ def evaluate(eval_step, valid_dataloader, post_process_class, eval_class, model_
     On one CUDA stream the postprocess's device front half (K1) queues behind
     that forward, so what overlaps is the host: the next forward's launches
     and the previous chunk's host tail. The metric is fed per sample in input
-    order. Pre-batched loaders take the per-batch path."""
+    order. Pre-batched loaders take the per-batch path, as tables do (their
+    post process and metric take the whole batch, :819-846)."""
     import itertools
 
     batch_iter = iter(valid_dataloader)
@@ -377,7 +380,8 @@ def evaluate(eval_step, valid_dataloader, post_process_class, eval_class, model_
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize(device)
             total_time += time.time() - start
-            eval_class(post_process_class(preds, batch_np[1]), batch_np)
+            eval_class(post_process_class(
+                preds, batch_np if model_type == "table" else batch_np[1]), batch_np)
             total_frame += len(batch_np[0])
         metric = eval_class.get_metric()
         metric["fps"] = total_frame / max(total_time, 1e-9)

@@ -7,7 +7,10 @@ optimizer update and BN statistics. Here it is the same sequence on an
 `nn.Module`: train mode (the flax-statistics BN of modeling/common.py),
 `torch.autocast(bfloat16)` around the forward when `use_amp` (the JAX bf16
 policy), the model's outputs cast to float32 before the loss, `backward()`, and
-`optimizer.step()` (optimizer.OptaxAdam, optax's arithmetic).
+`optimizer.step()` (optimizer.OptaxAdam, optax's arithmetic). A model
+whose head takes a generator (SLAHead's scheduled sampling) gets one per
+step, `sample_generator(device, step)`, as the JAX step hands the model
+`fold_in(PRNGKey(17), state.step)` (trainer.py:159).
 
 TF32: `set_matmul_precision` turns TF32 off for cuDNN convolutions and cuBLAS
 matmuls, so float32 training computes in float32 as the CPU does; under
@@ -125,19 +128,37 @@ def float_preds(preds, dtype=torch.float32):
     return preds
 
 
+def sample_generator(device, step):
+    """The train step's torch.Generator on `device`, seeded from (17,
+    `step`): the port's stand-in for the JAX step's `fold_in(PRNGKey(17),
+    step)`, whose stream torch cannot reproduce."""
+    return torch.Generator(device=device).manual_seed((17 << 32) + int(step))
+
+
+def takes_generator(model):
+    return bool(getattr(getattr(model, "head", None), "takes_generator", False))
+
+
 def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, frozen=()):
     """Build the train step: step(batch) with batch a tuple of tensors on the
     model's device, batch[0] the NHWC image tensor; returns the loss dict
-    (device tensors, not synced). From trainer.py:137."""
-    device_type = next(model.parameters()).device.type
+    (device tensors, not synced). The step's generator (`sample_generator`,
+    seeded by the optimizer's count before the update, the JAX `state.step`)
+    goes to a model whose head takes one. From trainer.py:137."""
+    device = next(model.parameters()).device
+    device_type = device.type
+    generator = takes_generator(model)
 
     def step(batch):
         model.train()
         images = batch[0]
         if input_transform is not None:
             images = input_transform(images)
+        kw = {}
+        if generator:
+            kw["generator"] = sample_generator(device, optimizer.param_groups[0]["count"])
         with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
-            preds = model(images.permute(0, 3, 1, 2), data=batch)  # NCHW view
+            preds = model(images.permute(0, 3, 1, 2), data=batch, **kw)  # NCHW view
         losses = loss_fn(float_preds(preds), batch)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()

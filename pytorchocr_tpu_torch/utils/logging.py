@@ -2,7 +2,10 @@
 
 Only rank 0 logs at INFO and writes the log file; other ranks are raised to
 ERROR. The rank is torch.distributed's when a process group is initialised,
-else 0 (the JAX version asks jax.process_index, logging.py:15-19).
+else 0 (the JAX version asks jax.process_index, logging.py:15-19). A later
+call with another `log_file` moves the logger's file to it, so each of
+several runs in one process (the tests, chip_smoke.py) writes its own
+train.log; the JAX version keeps the first.
 """
 
 import functools
@@ -23,27 +26,28 @@ def process_rank():
 def get_logger(name="pytorchocr_tpu_torch", log_file=None, log_level=logging.INFO):
     """From logging.py:22."""
     logger = logging.getLogger(name)
-    if name in logger_initialized:
-        return logger
-    for logger_name in logger_initialized:
-        if name.startswith(logger_name):
-            return logger
-
     formatter = logging.Formatter(
         "[%(asctime)s] %(name)s %(levelname)s: %(message)s", datefmt="%Y/%m/%d %H:%M:%S"
     )
-    stream_handler = logging.StreamHandler(stream=sys.stdout)
-    stream_handler.setFormatter(formatter)
-    logger.addHandler(stream_handler)
-
     rank = process_rank()
+    initialized = name in logger_initialized or any(
+        name.startswith(logger_name) for logger_name in logger_initialized)
     if rank == 0 and log_file is not None:
+        for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+            logger.removeHandler(h)
+            h.close()
         log_file_folder = os.path.dirname(log_file)
         if log_file_folder:
             os.makedirs(log_file_folder, exist_ok=True)
         file_handler = logging.FileHandler(log_file, "a")
         file_handler.setFormatter(formatter)
         logger.addHandler(file_handler)
+    if initialized:
+        return logger
+
+    stream_handler = logging.StreamHandler(stream=sys.stdout)
+    stream_handler.setFormatter(formatter)
+    logger.addHandler(stream_handler)
 
     logger.setLevel(log_level if rank == 0 else logging.ERROR)
     logger.propagate = False

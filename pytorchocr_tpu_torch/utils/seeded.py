@@ -5,11 +5,12 @@ initialisation.
 package's initialisers; tools/train.py starts every training from it
 (seeded by Global.seed). Untrained weights map a page to noise and a near
 uniform softmax, so `text_like_db_head_`, `text_like_pse_head_`,
-`text_like_pan_head_`, `decisive_ctc_head_` and `decisive_cls_head_` reshape
-the last layers of the detection, CTC and direction-classifier heads on the
-run's own pages: the detection postprocesses then find text-like
-components, the CTC collapse reads decided characters and the classifier
-decides most crops far from p = 0.5. Used by chip_smoke.py and the slice
+`text_like_pan_head_`, `decisive_ctc_head_`, `decisive_cls_head_` and
+`decisive_sla_head_` reshape the last layers of the detection, CTC,
+direction-classifier and table heads on the run's own pages: the detection
+postprocesses then find text-like components, the CTC collapse reads
+decided characters, the classifier decides most crops far from p = 0.5 and
+the table decode runs past its first steps before eos. Used by chip_smoke.py and the slice
 test; no serving path calls them.
 """
 
@@ -27,7 +28,8 @@ def seeded_init_(model, generator):
     Linear and LSTM input weights, orthogonal LSTM recurrent weights, zero
     biases, identity BN statistics; then every module's own JAX initialiser
     where it has one (`init_like_jax_`: the TPS's zero tail and RARE's
-    fiducial init)."""
+    fiducial init; `recurrent_weights`: the SLAHead cells' orthogonal
+    recurrent kernels)."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
             # fan_out of the flax kernel (kh, kw, in, out) is kh*kw*out
@@ -58,6 +60,8 @@ def seeded_init_(model, generator):
     for module in model.modules():
         if hasattr(module, "init_like_jax_"):
             module.init_like_jax_()
+        for w in module.recurrent_weights() if hasattr(module, "recurrent_weights") else ():
+            nn.init.orthogonal_(w, generator=generator)
     return model
 
 
@@ -228,6 +232,66 @@ def decisive_cls_head_(model, images, spread=4.0):
     fc.weight[1] = (a * v[0]).to(fc.weight.dtype)
     fc.bias[1] = -a * float(med)
     return float((a * (z - med)).abs().min())
+
+
+@torch.no_grad()
+def decisive_sla_head_(model, images, eos_index, boxes=(), spread=4.0, min_tokens=20,
+                       margin=1.0, share=0.25, max_raises=8):
+    """Make a SLANet with untrained, seeded weights decode decided, long
+    structures with cell boxes: its logits are otherwise near uniform, and
+    eos may win at any step. `structure_fc2` is scaled so the per-step
+    logits over the classes have a std of `spread` on `images` (NCHW,
+    normalized). With eos held off, the classes of `boxes` (the td tokens,
+    whose steps decode a box) are raised two logits at a time, up to
+    `max_raises` times, until they take `share` of the decoded steps. Then eos
+    gets a bias that keeps it below the step's best other class over the
+    first `min_tokens` steps of at least three quarters of the tables, by
+    `margin`: each table's eos-minus-best margin over those steps is read
+    from the decode with eos held off (earlier steps do not depend on a
+    later eos), and the bias is set from their upper quartile. An untrained
+    decode settles into a cycle of tokens, so eos then rarely wins later.
+    Returns each table's step of the first eos past step 0 (steps when
+    none) and the share of box steps, read from that decode."""
+    step = model.head.decode
+    fc = step.structure_fc2
+    seen = []  # each step's cell output, which structure_fc1 and fc2 read
+
+    def decode():
+        seen.clear()
+        _eval_hooked(model, step.rnn, images)
+        h = F.linear(torch.stack(seen, 1), step.structure_fc1.weight, step.structure_fc1.bias)
+        return F.linear(h, fc.weight, fc.bias)
+
+    hook = step.rnn.register_forward_hook(lambda mod, inp, out: seen.append(out[1]))
+    boxes = list(boxes)
+    try:
+        z = decode().float()
+        scale = spread / float(z.std(dim=-1).mean())
+        fc.weight.mul_(scale)
+        fc.bias.mul_(scale)
+        base = float(fc.bias[eos_index])
+        fc.bias[eos_index] = base - 1e4
+        z = decode()
+        for _ in range(max_raises if boxes else 0):
+            if float(torch.isin(z.argmax(-1), torch.tensor(boxes, device=z.device))
+                     .float().mean()) >= share:
+                break
+            fc.bias[boxes] += 2.0
+            z = decode()
+    finally:
+        hook.remove()
+    z = z.double()
+    got = float(torch.isin(z.argmax(-1), torch.tensor(boxes, device=z.device, dtype=torch.long))
+                .float().mean()) if boxes else 0.0
+    eos = z[..., eos_index] + 1e4 - base
+    z[..., eos_index] = -float("inf")
+    d = eos - z.max(dim=-1).values  # (N, steps): eos over the best other class, bias 0
+    bias = -float(d[:, :min_tokens].max(dim=1).values.quantile(0.75)) - margin
+    fc.bias[eos_index] = bias
+    wins = d + bias > 0
+    wins[:, 0] = False  # an eos at step 0 does not end the decode (TableLabelDecode)
+    steps = d.shape[1]
+    return [int(w.nonzero()[0]) if w.any() else steps for w in wins], got
 
 
 @torch.no_grad()

@@ -89,7 +89,7 @@ def test_rec_transforms_match_jax(padding, shape):
 
 def test_unported_data_op_names_its_roadmap_item():
     for name, item in (("CopyPaste", "A.15"), ("RecResizeImgForTest", "A.6"),
-                       ("ResizeTableImage", "A.13")):
+                       ("AttnLabelEncode", "A.11")):
         with pytest.raises(NotImplementedError, match=item):
             create_operators([{name: None}])
     with pytest.raises(NotImplementedError, match="unknown"):
@@ -246,3 +246,19 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", script, *names], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_logger_moves_its_file_to_each_runs_log(tmp_path):
+    """get_logger with another log_file (a second training run in one
+    process) writes that run's lines to its own file: each train.log holds
+    its run's lines only, also after a call without a file."""
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+
+    name = "port_logger_test"
+    get_logger(name=name).info("no file yet")
+    for run in ("a", "b"):
+        get_logger(name=name, log_file=str(tmp_path / run / "train.log")).info("run %s" % run)
+    get_logger(name=name).info("after b")
+    a, b = ((tmp_path / r / "train.log").read_text() for r in ("a", "b"))
+    assert "run a" in a and "run b" not in a and "no file yet" not in a
+    assert "run b" in b and "after b" in b and "run a" not in b

@@ -171,12 +171,12 @@ def test_bridge_rejects_mismatched_trees():
 
 
 @pytest.mark.parametrize("section,name,item", [
-    ("Backbone", "ConvNeXt", "A.11"), ("Neck", "CSPPAN", "A.13"),
-    ("Head", "SLAHead", "A.13"),
+    ("Backbone", "ConvNeXt", "A.11"), ("Backbone", "SwinTransformer", "A.11"),
+    ("Head", "NoSuchHead", "unknown"),
 ])
 def test_registry_names_the_roadmap_item(section, name, item):
     arch = dict(DB_ARCH, **{section: {"name": name}})
     with pytest.raises(NotImplementedError, match=item):
         build_model(arch)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        build_post_process({"name": "TableLabelDecode"})
+    with pytest.raises(NotImplementedError, match="A.12"):
+        build_post_process({"name": "DistillationDBPostProcess"})

@@ -145,3 +145,45 @@ def test_in_place_pieces_are_refused():
     branches.wrap(model, replay=False)
     with pytest.raises(NotImplementedError, match="in-place relu"):
         model(torch.zeros(1, 1, 5, 5))
+
+
+TABLE = {"model_type": "table", "algorithm": "SLANet", "Transform": None,
+         "Backbone": {"name": "PPLCNet", "scale": 0.5},
+         "Neck": {"name": "CSPPAN", "out_channels": 24, "mode": "table"},
+         "Head": {"name": "SLAHead", "hidden_size": 32, "max_text_length": 6, "loc_reg_num": 8,
+                  "out_channels": 12, "scheduled_sampling_p": 0.5, "aux_count": True}}
+
+
+def test_table_replay_takes_the_recorded_pieces_coins_and_tokens():
+    """SLANet with scheduled sampling (PPLCNet's hardswish, CSPPAN's leaky
+    relu, SLAHead's coins and fed-back argmax): its own record replayed with
+    another generator's coins gives the recorded run bit for bit (the coins
+    and tokens are the record's, the other draws uncounted); a fed-back
+    token turned over is counted and moves the gradients."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 3, 64, 64).astype(np.float32))
+    tokens = torch.from_numpy(np.random.RandomState(5).randint(1, 11, (2, 8)))
+
+    def grads(branches, replay, seed, dtype=torch.float32):
+        model = branches.wrap(_model(TABLE, dtype), replay=replay)
+        out = model(x.to(dtype), data=[None, tokens],
+                    generator=torch.Generator().manual_seed(seed))
+        (out["structure_probs"].double() ** 2).sum().backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+
+    branches = chip_smoke.Branches()
+    g = grads(branches, False, 0)
+    names = {name for name, _ in branches.records["model"]}
+    assert names >= {"relu", "relu6", "leaky_relu", "argmax", "rand"}, names
+    again = grads(branches, True, 1)  # other coins drawn, the record's replayed
+    assert all(torch.equal(g[k], v) for k, v in again.items())
+    assert set(branches.flips.values()) == {0}, branches.flips
+    plain_other = grads(chip_smoke.Branches(), False, 1)
+    assert any(not torch.equal(g[k], v) for k, v in plain_other.items())
+
+    i = [j for j, (name, _) in enumerate(branches.records["model"]) if name == "argmax"][0]
+    name, value = branches.records["model"][i]
+    branches.records["model"][i] = (name, (value + 1) % 12)
+    branches.flips = {}
+    moved = grads(branches, True, 0)
+    assert branches.flips["argmax"] == value.numel()
+    assert max(float((g[k] - v).abs().max()) for k, v in moved.items()) > 0

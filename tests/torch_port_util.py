@@ -368,6 +368,41 @@ def tiny_rec_cls_config(path, kind, train_label, eval_label, save_dir):
     return str(path)
 
 
+def tiny_table_config(path, label, save_dir, p=0.25, max_len=12, size=64):
+    """Write table_sla_synth.yml at small widths (PPLCNet x0.5, CSPPAN 24,
+    hidden 32, `max_len` steps, `size`-square tables) with scheduled
+    sampling `p`, bs 2, float32, CPU, one epoch with an eval after it, over
+    `label` (a PubTabNet jsonl), everything else as published, to `path`;
+    return it."""
+    import os
+
+    import yaml
+
+    from pytorchocr_tpu_torch.utils.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "configs", "table", "table_sla_synth.yml"))
+    cfg["Global"].update(use_gpu=False, use_amp=False, epoch_num=1, print_batch_step=1,
+                         save_model_dir=str(save_dir), eval_epoch_step=[0, 1],
+                         log_smooth_window=2, max_text_length=max_len)
+    arch = cfg["Architecture"]
+    arch["Backbone"]["scale"] = 0.5
+    arch["Neck"]["out_channels"] = 24
+    arch["Head"].update(hidden_size=32, max_text_length=max_len, scheduled_sampling_p=p)
+    for mode in ("Train", "Eval"):
+        for op in cfg[mode]["dataset"]["transforms"]:
+            name = next(iter(op))
+            if name == "TableLabelEncode":
+                op[name]["max_text_length"] = max_len
+            elif name == "ResizeTableImage":
+                op[name]["max_len"] = size
+        cfg[mode]["dataset"]["label_file_list"] = [str(label)]
+        cfg[mode]["loader"].update(batch_size_per_card=2, num_workers=1)
+    with open(path, "w") as f:
+        yaml.safe_dump(_plain(cfg), f, sort_keys=False)
+    return str(path)
+
+
 TRAIN_SCRIPT = (
     "import importlib, json, sys\n"
     "out = importlib.import_module('pytorchocr_tpu_torch.tools.train').run(sys.argv[1:])\n"
