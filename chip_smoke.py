@@ -174,6 +174,23 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      structures exactly) within a step cap, the untrained model failing that reading, and the checkpoint
      read alike by tools.eval.run (the entry point of `python -m
      pytorchocr_tpu_torch.tools.eval`). The table path adds no kernel launch.
+ 19. distillation on phase 11's pages, its trained DB-ResNet18 as the teacher
+     (`Architecture.Models.Teacher.pretrained`), and phase 12's lines:
+     (a) det_cml_db_synth.yml as published (the frozen teacher, two
+     MobileNetV3-large x0.5 students with FPN 96; TeachDB + DML + DB losses;
+     bs 8 at 640x640, bf16): the float32 step against float64 on the card's
+     pieces (the teacher's forward too) and its TF32-on control, the
+     checkpoint round trip, tools.train.run with its evaluate through
+     DistillationDBPostProcess (every K1 launch held, with its changed flag,
+     to the plain version), the teacher bit for bit unchanged in the saved
+     checkpoint, tools.eval.run on best_accuracy equal to it; (b)
+     det_distill_db_synth.yml and det_dml_db_synth.yml through
+     tools.train.run and tools.eval.run alike, and the distill student's
+     convergence check on one fixed batch (it reproduces the teacher's eval
+     boxes; the untrained student does not); (c) rec_dml_ctc_synth.yml as
+     published (two CRNNs, CTC + DML): the float32 step, the round trip,
+     tools.train.run and tools.eval.run equal to it, DistillationMetric
+     picking the better student; no kernel on that path.
 Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
@@ -181,8 +198,17 @@ JAX package (pytorchocr_tpu) was loaded. The line before the last is
 library_ms, launches, and `timing`, how device_ms was taken), the last one
 the contract {"ok": true, "device":
 {...}}. Without a card, or outside a checkout, it exits non-zero and prints
-no result. `--only 18` runs phase 18 alone after the device report, and
-prints no result.
+no result.
+
+The phases run in the order 1-4, 11-15, 17-19, 5-10, 16 (run_phases: the
+trainings' card-bound loops leave the host to the CPU reference work of the
+serving phases). Each phase's time is printed beside its budget
+(PHASE_BUDGET_S); a phase past it says so and does not fail. The CPU reference work runs in a second
+process of this script (CpuWorker), stopped while a timed section runs;
+the float32-step checks wait for their float64 and CPU float32 steps at the
+end of the run ("checks"), each reported then under its phase's tag.
+`--only 1-4,19` runs the listed phases and those they read from (19: 11
+and 12), and prints no result.
 """
 
 import json
@@ -222,6 +248,239 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+class CpuWorker:
+    """A second process of this script (`--cpu-worker DIR`, niced to 19),
+    started at the top of the run, that does the CPU reference work off the
+    card's critical path: the seeded models and the CPU float32 runs that
+    phases 5-8, 10 and 16 hold the card to, the drawn lines of phases 12-13,
+    and the float64 and CPU float32 train steps of the float32-step checks.
+    Jobs are (function of this script, picklable arguments) files in DIR,
+    run in the order submitted; each result comes back as a file. While a
+    timed section runs (`paused`: the kernels' timings, every
+    tools.train.run and tools.eval.run, the loaders' and the losses'
+    timings, the profiled train loops, the served timings), the worker is
+    stopped (SIGSTOP). The serving timings of phases 5-10 and 16 (`beside`:
+    pages/s, stage times, card busy) and the overfit loops (phases 12, 13,
+    17, 18, 19) may run beside it, and the run says so where they did."""
+
+    def __init__(self, dirname):
+        os.makedirs(dirname, exist_ok=True)
+        self.dir, self.n, self.depth, self.stopped_s, self.waited_s = dirname, 0, 0, 0.0, 0.0
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-worker", dirname],
+            preexec_fn=lambda: os.nice(19))
+
+    def _path(self, kind, n):
+        return os.path.join(self.dir, "%s_%04d.pt" % (kind, n))
+
+    def submit(self, fn, *args, **kwargs):
+        import torch
+
+        n, self.n = self.n, self.n + 1
+        tmp = self._path("job", n) + ".tmp"
+        torch.save({"fn": fn.__name__, "args": args, "kwargs": kwargs}, tmp)
+        os.rename(tmp, self._path("job", n))
+        return Pending(self, n)
+
+    def result(self, n):
+        import torch
+
+        check(self.depth == 0, "a CPU reference result was asked for inside a timed section")
+        path = self._path("out", n)
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            check(self.proc.poll() is None, "the CPU reference process ended (exit %s) before "
+                  "job %d" % (self.proc.returncode, n))
+            time.sleep(0.02)
+        self.waited_s += time.perf_counter() - t0
+        out = torch.load(path, weights_only=False)
+        os.remove(path)
+        check("error" not in out, "CPU reference job %d failed:\n%s" % (n, out.get("error")))
+        return out["result"]
+
+    def pause(self):
+        import signal
+
+        if self.depth == 0 and self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGSTOP)
+            self.t_stop = time.perf_counter()
+        self.depth += 1
+
+    def resume(self):
+        import signal
+
+        self.depth -= 1
+        if self.depth == 0 and self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGCONT)
+            self.stopped_s += time.perf_counter() - self.t_stop
+
+    def busy(self):
+        """Whether a job waits or runs."""
+        return any(os.path.exists(self._path("job", n)) for n in range(self.n))
+
+    def close(self):
+        import signal
+
+        if self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGCONT)
+            self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class Pending:
+    """A submitted job's result, or a value computed at once."""
+
+    def __init__(self, worker=None, n=None, value=None):
+        self.worker, self.n, self.value, self.done = worker, n, value, worker is None
+
+    def result(self):
+        if not self.done:
+            self.value, self.done = self.worker.result(self.n), True
+        return self.value
+
+
+class Earlier:
+    """An argument of a job that is the result (or one entry of it) of an
+    earlier job, resolved in the worker."""
+
+    def __init__(self, pending, key=None):
+        self.n, self.key = pending.n, key
+
+
+WORKER = None  # the run's CpuWorker; None runs every job in place (--only, rehearsals)
+
+
+def cpu_job(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` in the CPU reference process, or here and now
+    without one. Returns a Pending."""
+    if WORKER is not None:
+        return WORKER.submit(fn, *args, **kwargs)
+
+    def resolve(a):
+        return a.value if isinstance(a, Pending) else a
+
+    return Pending(value=fn(*[resolve(a) for a in args],
+                            **{k: resolve(v) for k, v in kwargs.items()}))
+
+
+def after(pending, key=None):
+    """An argument of cpu_job: `pending`'s result (its `key` entry)."""
+    if WORKER is None:
+        value = pending.result()
+        return Pending(value=value if key is None else value[key])
+    return Earlier(pending, key)
+
+
+DEFERRED = []  # the float32-step checks waiting for their CPU steps (later)
+
+
+def later(check_fn):
+    """Hold a float32-step check (compare_f32_step's) back to the end of the
+    run, so that its float64 and CPU float32 steps run in the CPU reference
+    process while the card goes on with the later phases (their untimed
+    parts)."""
+    DEFERRED.append(check_fn)
+
+
+def run_deferred():
+    """The held-back float32-step checks, in the order their phases ran."""
+    n = len(DEFERRED)
+    while DEFERRED:
+        DEFERRED.pop(0)()
+    say("f32-checks", "the %d float32-step checks held back to here hold" % n)
+
+
+class paused:
+    """A timed section: the CPU reference process is stopped inside it."""
+
+    def __enter__(self):
+        if WORKER is not None:
+            WORKER.pause()
+
+    def __exit__(self, *exc):
+        if WORKER is not None:
+            WORKER.resume()
+
+
+def quiet(fn):
+    """`fn` as a timed section (paused)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with paused():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+OVERLAPPED = set()  # the timed helpers that ran beside a busy CPU reference process
+
+
+def beside(fn):
+    """A timed serving section (pages/s, stage times, card busy) that the
+    niced CPU reference process may run beside: run_phases names it after
+    its phase when the process was busy then."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if WORKER is not None and WORKER.depth == 0 and WORKER.busy():
+            OVERLAPPED.add(fn.__name__)
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def beside_worker():
+    """A note for a timed loop that the CPU reference process may run beside."""
+    return " (the niced CPU reference process ran beside it)" if (
+        WORKER is not None and WORKER.busy()) else ""
+
+
+def cpu_worker_main(dirname):
+    """The CPU reference process: run the jobs of DIR in order until told
+    to stop or the parent goes."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(6)  # the card's host work keeps two cores
+    parent, done, n = os.getppid(), {}, 0
+    while True:
+        path = os.path.join(dirname, "job_%04d.pt" % n)
+        while not os.path.exists(path):
+            if os.getppid() != parent:
+                return
+            time.sleep(0.02)
+        job = torch.load(path, weights_only=False)
+
+        def resolve(a):
+            if type(a).__name__ == "Earlier":  # this module may be loaded twice here
+                value = done[a.n]
+                return value if a.key is None else value[a.key]
+            return a
+
+        try:
+            out = globals()[job["fn"]](*[resolve(a) for a in job["args"]],
+                                       **{k: resolve(v) for k, v in job["kwargs"].items()})
+            done[n] = out
+            result = {"result": out}
+        except (Exception, SystemExit):  # check() raises SystemExit; the parent raises it
+            result = {"error": traceback.format_exc()}
+        tmp = os.path.join(dirname, "out_%04d.pt.tmp" % n)
+        torch.save(result, tmp)
+        os.rename(tmp, os.path.join(dirname, "out_%04d.pt" % n))
+        os.remove(path)
+        n += 1
+
+
+@quiet
 def cuda_ms(fn, iters=50, warmup=5):
     """ms per call of `fn` between CUDA events around a loop of calls: the
     larger of the host's enqueue time and the card's time."""
@@ -239,6 +498,7 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+@quiet
 def kernel_ms(launch, iters=100, sessions=5):
     """Device-only time per call of `launch` (raw kernel launches into
     preallocated outputs): for each kernel or memset a call runs, the mean
@@ -279,6 +539,7 @@ def kernel_ms(launch, iters=100, sessions=5):
 L2_BYTES = 50 * 2 ** 20  # H100 SXM L2 (NVIDIA data sheet)
 
 
+@quiet
 def stream_ms(launch, tensors, reps=5):
     """Device ms per call of `launch(*tensors)` back to back, with the L2
     cold: the int8_conv and requant rows of the kernels line use it.
@@ -749,6 +1010,7 @@ def box_lists(result):
             for page in result]
 
 
+@beside
 def timed_runs(fn, reps=5):
     """Mean seconds of `reps` calls of `fn` (after an earlier, untimed call)
     and the lines (or boxes) it returns per call."""
@@ -760,6 +1022,27 @@ def timed_runs(fn, reps=5):
         lines = sum(len(p) for p in fn())
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps, lines
+
+
+def train_run(argv):
+    """tools.train.run(argv), the entry point of `python -m
+    pytorchocr_tpu_torch.tools.train`, as a timed section: its report and
+    seconds."""
+    from pytorchocr_tpu_torch.tools import train as train_cli
+
+    with paused():
+        t0 = time.perf_counter()
+        report = train_cli.run(argv)
+        return report, time.perf_counter() - t0
+
+
+@quiet
+def eval_run(argv):
+    """tools.eval.run(argv), the entry point of `python -m
+    pytorchocr_tpu_torch.tools.eval`, as a timed section (it reports fps)."""
+    from pytorchocr_tpu_torch.tools import eval as eval_cli
+
+    return eval_cli.run(argv)
 
 
 class float32_on_card:
@@ -779,22 +1062,187 @@ class float32_on_card:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
-def phase_slice(dev, card, tmp, pages):
-    """The DB slice. Returns the main-path run's K1 launches and the seeded
-    CRNN's .pt, which the PSE slice reads too."""
+def det_reference(deter, pages):
+    """What compare_boxes holds a card run to, from `deter` (the CPU's, or a
+    model on the card): its maps (float32, on the CPU) on the batch of
+    `pages` as the det path builds it, and its post process."""
+    batch, _ = _det_batch(deter, pages)
+    return {"maps": deter.runner(batch)["maps"].float().cpu(), "post": deter.det_post_process_class}
+
+
+def ocr_crops(pages, rows):
+    """The line crops of `rows` (an OCRer's flat rows on `pages`)."""
+    import cv2
+    import numpy as np
+
+    from pytorchocr_tpu_torch.deploy.run_ocr import crop_lines
+
+    parts = []
+    for path, page in zip(pages, rows):
+        parts.extend(crop_lines(cv2.imread(path), [np.array(b).reshape(-1, 2) for b, _, _ in page]))
+    return parts
+
+
+def text_reference(ocr, pages, rows):
+    """What compare_texts holds a card run to: the line crops of `rows` (an
+    OCRer's rows on `pages`), turned as `ocr`'s classifier turns them, as
+    the recognizer's batch, and `ocr`'s CTC probabilities on it."""
+    import numpy as np
+
+    parts = ocr.turn_upright(ocr_crops(pages, rows))
+    batch = np.stack([ocr.recer._prep(im) for im in parts])
+    return {"batch": batch, "probs": ocr.recer.runner(batch).float().cpu()}
+
+
+def ref_ocr(args, pages, det_quant=False, cls_batch=None):
+    """The CPU run of OCRer(*args) on `pages` that a float32 card run is
+    held to: its rows, seconds, det_reference and text_reference; with
+    `det_quant` (calibrated on the first half of the pages) its AbsMax
+    state and int8 payloads; with `cls_batch` its classifier's
+    probabilities on that batch."""
+    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
+
+    t0 = time.perf_counter()
+    ocr = OCRer(*args, det_quant=det_quant, device="cpu")
+    cpu = flat(ocr.run_many(pages))
+    out = dict(cpu=cpu, cpu_s=time.perf_counter() - t0, det=det_reference(ocr.deter, pages),
+               text=text_reference(ocr, pages, cpu))
+    if det_quant:
+        out.update(calibrated=bool(ocr.deter.runner.quant),
+                   absmax=_absmax_state(ocr.deter.runner.model),
+                   payloads=_int8_payloads(ocr.deter, pages))
+    if cls_batch is not None:
+        out["p_cls"] = ocr.clser.runner(cls_batch).float().cpu()
+    return out
+
+
+def ref_det(det_cfg, det_pt, pages):
+    """The CPU run of Deter.run_batch on `pages` and its det_reference."""
+    import cv2
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+
+    deter = Deter(det_cfg, det_pt, device="cpu")
+    return dict(cpu=box_lists(deter.run_batch([cv2.imread(p) for p in pages])),
+                det=det_reference(deter, pages))
+
+
+def job_slice(tmp, pages):
+    """Phase 5's seeded checkpoints and CPU reference."""
+    det_pt, rec_pt, margin = seeded_checkpoints(tmp, DET_CFG, REC_CFG, pages)
+    return dict(ref_ocr((DET_CFG, det_pt, REC_CFG, rec_pt), pages), det_pt=det_pt, rec_pt=rec_pt,
+                margin=margin)
+
+
+def job_pse(tmp, pages, rec_pt):
+    from pytorchocr_tpu_torch.utils.seeded import text_like_pse_head_
+
+    det_pt, margins = seeded_det(tmp, PSE_CFG, pages, text_like_pse_head_, SEED + 4)
+    return dict(ref_ocr((PSE_CFG, det_pt, REC_CFG, rec_pt), pages), det_pt=det_pt,
+                margins=margins)
+
+
+def job_pan(tmp, pages):
+    from pytorchocr_tpu_torch.utils.seeded import text_like_pan_head_
+
+    det_pt, margins = seeded_det(tmp, PAN_CFG, pages, text_like_pan_head_, SEED + 5)
+    return dict(ref_det(PAN_CFG, det_pt, pages), det_pt=det_pt, margins=margins)
+
+
+def job_cls(tmp, pages, det_pt, rec_pt, rows):
+    """Phase 10's classifier, seeded (its fc made decisive on the crops of
+    `rows`, phase 5's CPU rows), and its CPU reference."""
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_cls import Clser
+    from pytorchocr_tpu_torch.utils.seeded import decisive_cls_head_, seeded_init_
+
+    parts = ocr_crops(pages, rows)
+    clser = Clser(CLS_CFG, None, device="cpu")
+    model = seeded_init_(clser.runner.model, torch.Generator().manual_seed(SEED + 7))
+    cls_batch = np.stack([clser._prep(c) for c in parts])
+    margin = decisive_cls_head_(model, torch.from_numpy(cls_batch).permute(0, 3, 1, 2))
+    cls_pt = os.path.join(tmp, "cls.pt")
+    torch.save(model.state_dict(), cls_pt)
+    args = (DET_CFG, det_pt, REC_CFG, rec_pt, CLS_CFG, cls_pt)
+    return dict(ref_ocr(args, pages, cls_batch=cls_batch), args=args, margin=margin,
+                cls_batch=cls_batch)
+
+
+def job_zoo(tmp, pages, kind, det_pt=None, rec_pt=None, tag=None, cfg=None, seed=None):
+    """Phase 16's seeded model of `kind` ("dbpp", "starnet" or "det": a
+    ZOO_DET entry) and its CPU reference on the first ZOO_CPU_PAGES pages;
+    for RepVGG also its fold."""
+    from pytorchocr_tpu_torch.utils.seeded import nontrivial_bn_, text_like_db_head_
+
+    few = pages[:ZOO_CPU_PAGES]
+    if kind == "dbpp":
+        det_pt, margin = seeded_det(tmp, DBPP_CFG, few, text_like_db_head_, SEED + 60)
+        return dict(ref_ocr((DBPP_CFG, det_pt, REC_CFG, rec_pt), few), det_pt=det_pt,
+                    margin=margin)
+    if kind == "starnet":
+        star_pt, outside = seeded_star_net(tmp, pages)
+        return dict(ref_ocr((DET_CFG, det_pt, STARNET_CFG, star_pt), few), star_pt=star_pt,
+                    outside=outside)
+    repvgg = "repvgg" in os.path.basename(cfg)
+    det_pt, margin = seeded_det(tmp, cfg, few, text_like_db_head_, seed,
+                                nontrivial_bn_ if repvgg else None)
+    out = dict(ref_det(cfg, det_pt, few), det_pt=det_pt, margin=margin)
+    if repvgg:
+        out["fold"] = repvgg_fold(tmp, cfg, det_pt)
+    return out
+
+
+def job_lines(tmp, kind):
+    """Phase 12's (kind "rec") or 13's ("cls") drawn train and eval lines."""
+    rec = kind == "rec"
+    lengths = (1, 25) if rec else (5, 25)  # cls: long enough that a turn shows
+    return (make_lines(os.path.join(tmp, kind + "_train"), LINES_TRAIN, SEED + 31 + rec, lengths,
+                       turn_half=not rec),
+            make_lines(os.path.join(tmp, kind + "_eval"), LINES_EVAL, SEED + 41 + rec, lengths,
+                       turn_half=not rec))
+
+
+def submit_references(tmp, pages, wanted):
+    """The fixed jobs of the CPU reference process that `wanted` names (the
+    keys of REFS), in the order the phases read them. The checkpoints of
+    phase 5 (job_slice's det.pt and rec.pt) are written before any later
+    job reads them: the process runs its jobs in order."""
+    det_pt, rec_pt = os.path.join(tmp, "det.pt"), os.path.join(tmp, "rec.pt")
+    jobs = [("lines rec", job_lines, (tmp, "rec"), {}),
+            ("lines cls", job_lines, (tmp, "cls"), {}),
+            ("slice", job_slice, (tmp, pages), {}),
+            ("pse", job_pse, (tmp, pages, rec_pt), {}),
+            ("pan", job_pan, (tmp, pages), {}),
+            ("int8", ref_ocr, ((DET_CFG, det_pt, REC_CFG, rec_pt), pages), {"det_quant": True}),
+            ("cls", job_cls, (tmp, pages, det_pt, rec_pt, "slice rows"), {}),
+            ("dbpp", job_zoo, (tmp, pages, "dbpp"), {"rec_pt": rec_pt}),
+            ("starnet", job_zoo, (tmp, pages, "starnet"), {"det_pt": det_pt})]
+    jobs += [(tag, job_zoo, (tmp, pages, "det"), {"tag": tag, "cfg": cfg, "seed": seed})
+             for tag, cfg, seed in ZOO_DET]
+    refs = {}
+    for name, fn, args, kwargs in jobs:
+        if name in wanted:
+            args = tuple(after(refs["slice"], "cpu") if a == "slice rows" else a for a in args)
+            refs[name] = cpu_job(fn, *args, **kwargs)
+    return refs
+
+
+def phase_slice(dev, card, tmp, pages, ref):
+    """The DB slice, held to `ref` (job_slice's CPU reference). Returns the
+    main-path run's K1 launches and the checkpoints and runs that later
+    phases read."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
     from pytorchocr_tpu_torch.ops import cc_label, runmax
 
     det_cfg, rec_cfg = DET_CFG, REC_CFG
-    reps = 3
-    det_pt, rec_pt, margin = seeded_checkpoints(tmp, det_cfg, rec_cfg, pages)
-
-    t0 = time.perf_counter()
-    ocr_cpu = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device="cpu")
-    cpu = flat(ocr_cpu.run_many(pages))
-    cpu_s = time.perf_counter() - t0
+    reps = 1
+    ref = ref.result()
+    det_pt, rec_pt, margin, cpu, cpu_s = (ref[k] for k in ("det_pt", "rec_pt", "margin", "cpu",
+                                                           "cpu_s"))
     n_lines = sum(len(p) for p in cpu)
     check(n_lines > 0, "the seeded slice found no text boxes on the CPU")
 
@@ -803,25 +1251,26 @@ def phase_slice(dev, card, tmp, pages):
         launches0 = runmax.launches
         f32 = flat(ocr32.run_many(pages))
         check(runmax.launches > launches0, "the float32 slice launched no run-max kernel")
-        pairs, f32_diff = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+        pairs, f32_diff = compare_boxes(ref["det"], ocr32.deter, pages, box_lists(cpu),
                                         box_lists(f32), margin)
-        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs)
+        compare_texts(ref["text"], ocr32, cpu, f32, pairs)
         secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("slice-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off; %d pages of %dx%d, "
-            "mean of %d runs) on %s; the cpu's first call %.1f s"
+            "%d timed run(s)) on %s; the cpu's first call %.1f s"
             % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps, card, cpu_s))
         say("slice-f32", "stages per %d-page call: %s on %s"
             % (PAGES, stage_breakdown(ocr32.deter, pages, "db", ocr32.recer), card))
-    del ocr32, ocr_cpu
+    del ocr32
 
     ocr = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev)  # bf16 default
     runmax.launches = 0
     cc_label.alternations = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bf16 = flat(ocr.run_many(pages))
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    with paused():
+        t0 = time.perf_counter()
+        bf16 = flat(ocr.run_many(pages))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
     launches, alts = runmax.launches, cc_label.alternations
     check(launches > 0, "the main-path run launched no run-max kernel")
     lines16 = sum(len(p) for p in bf16)
@@ -835,7 +1284,7 @@ def phase_slice(dev, card, tmp, pages):
     say("slice-bf16", "bf16 against the float32 run on the card (a report, not a check): "
         "%d lines; %d match an f32 box at IoU >= 0.5, %d of them with the f32 text"
         % (lines16, matched, same_text))
-    say("slice-bf16", "%.3f pages/s, %.1f lines/s (%d pages of %dx%d, mean of %d runs) on %s"
+    say("slice-bf16", "%.3f pages/s, %.1f lines/s (%d pages of %dx%d, %d timed run(s)) on %s"
         % (PAGES / secs, lines16 / secs, PAGES, H, W, reps, card))
     say("slice-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
     say("slice-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
@@ -843,6 +1292,7 @@ def phase_slice(dev, card, tmp, pages):
                           pages_per_s=PAGES / secs, f32_diff=f32_diff)
 
 
+@beside
 def pse_expansion_report(deter, pages):
     """pse_expand_device on the first page's kernels from `deter`'s maps: the
     K2 launches of each level's fixpoint, the K1 launches, and the time of
@@ -888,24 +1338,20 @@ def pse_expansion_report(deter, pages):
                              per_level, k - 2, sum(per_level), k1, float(np.median(ms))))
 
 
-def phase_pse(dev, card, tmp, pages, rec_pt):
+def phase_pse(dev, card, tmp, pages, rec_pt, ref):
     """The PSE slice: det_r50_pse.yml + the DB slice's CRNN through
-    OCRer.run_many. Returns the main-path run's (K1, K2) launches."""
+    OCRer.run_many, held to `ref` (job_pse's). Returns the main-path run's
+    (K1, K2) launches."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
     from pytorchocr_tpu_torch.ops import propagate, runmax
-    from pytorchocr_tpu_torch.utils.seeded import text_like_pse_head_
 
-    det_cfg, rec_cfg, reps = PSE_CFG, REC_CFG, 3
-    det_pt, margins = seeded_det(tmp, det_cfg, pages, text_like_pse_head_, SEED + 4)
+    det_cfg, rec_cfg, reps = PSE_CFG, REC_CFG, 1
+    ref = ref.result()
+    det_pt, margins, cpu, cpu_s = ref["det_pt"], ref["margins"], ref["cpu"], ref["cpu_s"]
     say("pse", "seeded PSE head (ResNet-50, FPN 256, PSEHead 256 -> 7): margins %s logits"
         % _fmt(margins))
-
-    t0 = time.perf_counter()
-    ocr_cpu = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device="cpu")
-    cpu = flat(ocr_cpu.run_many(pages))
-    cpu_s = time.perf_counter() - t0
     check(sum(len(p) for p in cpu) > 0, "the seeded PSE slice found no text boxes on the CPU")
 
     with float32_on_card():
@@ -914,26 +1360,27 @@ def phase_pse(dev, card, tmp, pages, rec_pt):
         f32 = flat(ocr32.run_many(pages))
         check(runmax.launches > before[0] and propagate.launches > before[1],
               "the float32 PSE slice did not launch both kernels")
-        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+        pairs, _ = compare_boxes(ref["det"], ocr32.deter, pages, box_lists(cpu),
                                  box_lists(f32), margins, tag="pse-f32", channels=range(7),
                                  components=True)
-        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="pse-f32")
+        compare_texts(ref["text"], ocr32, cpu, f32, pairs, tag="pse-f32")
         secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("pse-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off; %d pages of %dx%d, "
-            "mean of %d runs) on %s; the cpu's first call %.1f s"
+            "%d timed run(s)) on %s; the cpu's first call %.1f s"
             % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps, card, cpu_s))
         say("pse-f32", "stages per %d-page call: %s on %s"
             % (PAGES, stage_breakdown(ocr32.deter, pages, "pse", ocr32.recer), card))
         say("pse-f32", "%s on %s" % (pse_expansion_report(ocr32.deter, pages), card))
-    del ocr32, ocr_cpu
+    del ocr32
 
     ocr = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev)  # bf16 default
     runmax.launches = propagate.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bf16 = flat(ocr.run_many(pages))
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    with paused():
+        t0 = time.perf_counter()
+        bf16 = flat(ocr.run_many(pages))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
     launches = runmax.launches, propagate.launches
     check(launches[0] > 0, "the PSE main-path run launched no run-max kernel")
     check(launches[1] > 0, "the PSE main-path run launched no propagation kernel")
@@ -948,7 +1395,7 @@ def phase_pse(dev, card, tmp, pages, rec_pt):
     say("pse-bf16", "bf16 against the float32 run on the card (a report, not a check): "
         "%d lines; %d match an f32 box at IoU >= 0.5, %d of them with the f32 text"
         % (lines16, matched, same_text))
-    say("pse-bf16", "%.3f pages/s, %.1f lines/s (%d pages of %dx%d, mean of %d runs) on %s"
+    say("pse-bf16", "%.3f pages/s, %.1f lines/s (%d pages of %dx%d, %d timed run(s)) on %s"
         % (PAGES / secs, lines16 / secs, PAGES, H, W, reps, card))
     say("pse-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
     say("pse-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
@@ -956,23 +1403,21 @@ def phase_pse(dev, card, tmp, pages, rec_pt):
     return launches
 
 
-def phase_pan(dev, card, tmp, pages):
-    """The PAN det path: det_r18_pan.yml through Deter.run_batch. Returns the
-    main-path run's K1 launches."""
+def phase_pan(dev, card, tmp, pages, ref):
+    """The PAN det path: det_r18_pan.yml through Deter.run_batch, held to
+    `ref` (job_pan's). Returns the main-path run's K1 launches."""
     import cv2
     import torch
 
     from pytorchocr_tpu_torch.deploy.infer_det import Deter
     from pytorchocr_tpu_torch.ops import runmax
-    from pytorchocr_tpu_torch.utils.seeded import text_like_pan_head_
 
-    det_cfg, reps = PAN_CFG, 3
-    det_pt, margins = seeded_det(tmp, det_cfg, pages, text_like_pan_head_, SEED + 5)
+    det_cfg, reps = PAN_CFG, 1
+    ref = ref.result()
+    det_pt, margins, cpu = ref["det_pt"], ref["margins"], ref["cpu"]
     say("pan", "seeded PAN head (ResNet-18, FPEM_FFM v2 128 x2, PANHead 128 -> 6): text and "
         "kernel margins %s logits" % _fmt(margins))
     imgs = [cv2.imread(p) for p in pages]
-    deter_cpu = Deter(det_cfg, det_pt, device="cpu")
-    cpu = box_lists(deter_cpu.run_batch(imgs))
     check(sum(len(p) for p in cpu) > 0, "the seeded PAN det found no text boxes on the CPU")
 
     with float32_on_card():
@@ -980,12 +1425,12 @@ def phase_pan(dev, card, tmp, pages):
         before = runmax.launches
         f32 = box_lists(deter32.run_batch(imgs))
         check(runmax.launches > before, "the float32 PAN det launched no run-max kernel")
-        compare_boxes(deter_cpu, deter32, pages, cpu, f32, margins, tag="pan-f32",
+        compare_boxes(ref["det"], deter32, pages, cpu, f32, margins, tag="pan-f32",
                       channels=(0, 1), components=True)
         secs32, boxes32 = timed_runs(lambda: deter32.run_batch(imgs), reps)
         say("pan-f32", "%.3f pages/s, %.1f boxes/s (float32, TF32 off; %d pages of %dx%d, "
-            "mean of %d runs) on %s" % (PAGES / secs32, boxes32 / secs32, PAGES, H, W, reps, card))
-    del deter32, deter_cpu
+            "%d timed run(s)) on %s" % (PAGES / secs32, boxes32 / secs32, PAGES, H, W, reps, card))
+    del deter32
 
     deter = Deter(det_cfg, det_pt, device=dev)  # bf16 default
     runmax.launches = 0
@@ -1000,7 +1445,7 @@ def phase_pan(dev, card, tmp, pages):
     busy = device_time(lambda: deter.run_batch(imgs), secs)
     say("pan-bf16", "main path: runmax.launches %d; %d boxes (float32: %d)"
         % (launches, boxes16, sum(len(p) for p in f32)))
-    say("pan-bf16", "%.3f pages/s, %.1f boxes/s (%d pages of %dx%d, mean of %d runs) on %s"
+    say("pan-bf16", "%.3f pages/s, %.1f boxes/s (%d pages of %dx%d, %d timed run(s)) on %s"
         % (PAGES / secs, boxes16 / secs, PAGES, H, W, reps, card))
     say("pan-bf16", "stages per %d-page call: %s on %s" % (PAGES, breakdown, card))
     say("pan-bf16", "profiler, one %d-page call: %s on %s" % (PAGES, busy, card))
@@ -1050,10 +1495,11 @@ def hmean(runs, refs):
     return 2.0 * matched / total if total else 1.0
 
 
-def phase_int8_slice(dev, card, pages, db):
-    """The int8 DB slice on the DB slice's checkpoints `db` (phase_slice's).
-    Returns the main-path run's (int8 conv, K1, requant) launches and the
-    bf16 int8 OCRer."""
+def phase_int8_slice(dev, card, pages, db, ref):
+    """The int8 DB slice on the DB slice's checkpoints `db` (phase_slice's),
+    held to `ref` (ref_ocr's int8 CPU run, calibrated on the first half of
+    the pages). Returns the main-path run's (int8 conv, K1, requant)
+    launches and the bf16 int8 OCRer."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.infer_det import Deter
@@ -1061,15 +1507,12 @@ def phase_int8_slice(dev, card, pages, db):
     from pytorchocr_tpu_torch.ops import int8_conv, requant, runmax
     from pytorchocr_tpu_torch.utils.weights import load_absmax
 
-    det_cfg, rec_cfg, reps = DET_CFG, REC_CFG, 3
+    det_cfg, rec_cfg, reps = DET_CFG, REC_CFG, 1
     args = (det_cfg, db["det_pt"], rec_cfg, db["rec_pt"])
-    t0 = time.perf_counter()
-    ocr_cpu = OCRer(*args, det_quant=True, device="cpu")
-    cpu = flat(ocr_cpu.run_many(pages))  # calibrates on the first half of the pages
-    cpu_s = time.perf_counter() - t0
-    check(ocr_cpu.deter.runner.quant, "the int8 slice did not calibrate on the CPU")
+    ref = ref.result()
+    cpu, cpu_s, cpu_state = ref["cpu"], ref["cpu_s"], ref["absmax"]
+    check(ref["calibrated"], "the int8 slice did not calibrate on the CPU")
     check(sum(len(p) for p in cpu) > 0, "the int8 slice found no text boxes on the CPU")
-    cpu_state = _absmax_state(ocr_cpu.deter.runner.model)
 
     with float32_on_card():
         ocr32 = OCRer(*args, det_quant=True, device=dev, dtype=torch.float32)
@@ -1084,7 +1527,7 @@ def phase_int8_slice(dev, card, pages, db):
             "largest relative difference %.3g" % (len(own), rel))
         load_absmax(ocr32.deter.runner.model, cpu_state)  # the CPU's scales from here on
         f32 = flat(ocr32.run_many(pages))
-        q_cpu, q_gpu = _int8_payloads(ocr_cpu.deter, pages), _int8_payloads(ocr32.deter, pages)
+        q_cpu, q_gpu = ref["payloads"], _int8_payloads(ocr32.deter, pages)
         report = []
         for name in INT8_STAGES:
             d = (q_cpu[name] - q_gpu[name]).abs()
@@ -1095,25 +1538,26 @@ def phase_int8_slice(dev, card, pages, db):
             % "; ".join(report))
         check(int((q_cpu["backbone.stem"] - q_gpu["backbone.stem"]).abs().max()) <= 1,
               "the stem's int8 output differs from the CPU's by more than a quantum")
-        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+        pairs, _ = compare_boxes(ref["det"], ocr32.deter, pages, box_lists(cpu),
                                  box_lists(f32), db["margin"], tag="int8-f32",
                                  moved=2 * db["f32_diff"])
-        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="int8-f32")
+        compare_texts(ref["text"], ocr32, cpu, f32, pairs, tag="int8-f32")
         say("int8-f32", "card against CPU, both int8: hmean %.4f (rectangle IoU >= 0.5)"
             % hmean(f32, cpu))
         secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("int8-f32", "%.3f pages/s, %.1f lines/s (int8 det, float32 compute; %d pages of %dx%d, "
-            "mean of %d runs) on %s; the cpu's first call %.1f s"
+            "%d timed run(s)) on %s; the cpu's first call %.1f s"
             % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps, card, cpu_s))
-    del ocr32, ocr_cpu
+    del ocr32
 
     ocr = OCRer(*args, det_quant=True, device=dev)  # bf16 default; run_many calibrates
     int8_conv.launches = runmax.launches = requant.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    q16 = flat(ocr.run_many(pages))
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    with paused():
+        t0 = time.perf_counter()
+        q16 = flat(ocr.run_many(pages))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
     launches = int8_conv.launches, runmax.launches, requant.launches
     check(launches[0] > 0, "the int8 main-path run launched no int8 conv kernel")
     check(launches[1] > 0, "the int8 main-path run launched no run-max kernel")
@@ -1141,7 +1585,7 @@ def phase_int8_slice(dev, card, pages, db):
         "the JAX package (tests/test_torch_slice.py)" % (err, cc, h, sum(len(p) for p in q16),
                                                         sum(len(p) for p in db["bf16"]),
                                                         db["margin"]))
-    say("int8-bf16", "%.3f pages/s, %.1f lines/s (int8 det; %d pages of %dx%d, mean of %d runs) "
+    say("int8-bf16", "%.3f pages/s, %.1f lines/s (int8 det; %d pages of %dx%d, %d timed run(s)) "
         "against %.3f pages/s float bf16 (phase 5) on %s"
         % (PAGES / secs, lines / secs, PAGES, H, W, reps, db["pages_per_s"], card))
     say("int8-bf16", "stages per %d-page call: %s on %s"
@@ -1151,7 +1595,8 @@ def phase_int8_slice(dev, card, pages, db):
     return launches, ocr
 
 
-def forward_report(runner_q, runner_f, batch, card, rounds=10):
+@beside
+def forward_report(runner_q, runner_f, batch, card, rounds=4):
     """The int8 and the float det forward (both bf16) on one batch, on the
     host clock, each call ending in a sync, in `rounds` alternating pairs;
     then where each one's time goes: card time by kernel (torch.profiler)
@@ -1622,35 +2067,22 @@ def phase_requant(dev, card, ocr, pages):
     return dict(total, max_abs_err=max_err, calls=len(calls), library_calls=library_calls)
 
 
-def phase_cls(dev, card, tmp, pages, db):
+def phase_cls(dev, card, tmp, pages, db, ref):
     """The direction classifier on the DB slice (phase_slice's `db`): a
-    seeded cls_mbv3small.yml, its fc made decisive on the CPU crops."""
-    import cv2
-    import numpy as np
+    seeded cls_mbv3small.yml, its fc made decisive on the CPU crops, held to
+    `ref` (job_cls's)."""
     import torch
 
-    from pytorchocr_tpu_torch.deploy.infer_cls import Clser
-    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer, crop_lines
-    from pytorchocr_tpu_torch.utils.seeded import decisive_cls_head_, seeded_init_
+    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
 
-    parts = []
-    for path, page in zip(pages, db["cpu"]):
-        parts.extend(crop_lines(cv2.imread(path), [np.array(b).reshape(-1, 2) for b, _, _ in page]))
-    clser = Clser(CLS_CFG, None, device="cpu")
-    model = seeded_init_(clser.runner.model, torch.Generator().manual_seed(SEED + 7))
-    x = torch.from_numpy(np.stack([clser._prep(c) for c in parts])).permute(0, 3, 1, 2)
-    margin = decisive_cls_head_(model, x)
-    cls_pt = os.path.join(tmp, "cls.pt")
-    torch.save(model.state_dict(), cls_pt)
-    args = (DET_CFG, db["det_pt"], REC_CFG, db["rec_pt"], CLS_CFG, cls_pt)
-    ocr_cpu = OCRer(*args, device="cpu")
-    cpu = flat(ocr_cpu.run_many(pages))
-    p_cpu = ocr_cpu.clser.runner(np.stack([clser._prep(c) for c in parts])).float()
-    reps = 5
+    ref = ref.result()
+    args, margin, cls_batch, cpu, p_cpu = (ref[k] for k in ("args", "margin", "cls_batch", "cpu",
+                                                            "p_cls"))
+    reps = 1
     with float32_on_card():
         ocr32 = OCRer(*args, device=dev, dtype=torch.float32)
         f32 = flat(ocr32.run_many(pages))
-        p_gpu = ocr32.clser.runner(np.stack([clser._prep(c) for c in parts])).float().cpu()
+        p_gpu = ocr32.clser.runner(cls_batch).float().cpu()
         diff = float((p_gpu - p_cpu).abs().max())
         near = ((p_cpu[:, 1] - 0.5).abs() <= 2 * diff).tolist()
         same = (p_gpu.argmax(1) == p_cpu.argmax(1)).tolist()
@@ -1658,22 +2090,23 @@ def phase_cls(dev, card, tmp, pages, db):
               "a cls label differs on the card at a crop far from p = 0.5")
         n180 = int((p_cpu.argmax(1) == 1).sum())
         say("cls-f32", "seeded cls (MobileNetV3 small x0.35 + ClsHead, fc decisive, nearest crop "
-            "%.3g logits from a tie): %d crops, %d labelled 180; probs max |cuda - cpu| %.3g, labels "
-            "equal on %d, %d within 2x that of 0.5" % (margin, len(parts), n180, diff, sum(same),
-                                                       sum(near)))
-        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, pages, box_lists(cpu),
+            "%.3g logits from a tie): %d crops, %d labelled 180; probs max |cuda - cpu| %.3g, "
+            "labels equal on %d, %d within 2x that of 0.5" % (margin, len(cls_batch), n180, diff,
+                                                             sum(same), sum(near)))
+        pairs, _ = compare_boxes(ref["det"], ocr32.deter, pages, box_lists(cpu),
                                  box_lists(f32), db["margin"], tag="cls-f32")
-        compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="cls-f32",
+        compare_texts(ref["text"], ocr32, cpu, f32, pairs, tag="cls-f32",
                       excused={i for i, n in enumerate(near) if n})
         secs32, lines32 = timed_runs(lambda: ocr32.run_many(pages), reps)
         say("cls-f32", "%.3f pages/s, %.1f lines/s (float32, TF32 off, with cls; %d pages of "
-            "%dx%d, mean of %d runs) on %s" % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps,
+            "%dx%d, %d timed run(s)) on %s" % (PAGES / secs32, lines32 / secs32, PAGES, H, W, reps,
                                                 card))
-    del ocr32, ocr_cpu
+    del ocr32
+    parts = ocr_crops(pages, db["cpu"])
     ocr = OCRer(*args, device=dev)  # bf16 default
     ocr.run_many(pages)
     secs, lines = timed_runs(lambda: ocr.run_many(pages), reps)
-    say("cls-bf16", "%.3f pages/s, %.1f lines/s (with cls; %d pages of %dx%d, mean of %d runs) "
+    say("cls-bf16", "%.3f pages/s, %.1f lines/s (with cls; %d pages of %dx%d, %d timed run(s)) "
         "on %s" % (PAGES / secs, lines / secs, PAGES, H, W, reps, card))
     say("cls-bf16", "stages per %d-page call: %s on %s"
         % (PAGES, stage_breakdown(ocr.deter, pages, "db", ocr.recer, ocr.clser), card))
@@ -1691,10 +2124,11 @@ def _det_batch(deter, pages):
     return (np.concatenate([p[0] for p in pre]), np.concatenate([p[1] for p in pre]))
 
 
-def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", channels=(0,),
+def compare_boxes(ref, deter32, pages, cpu, f32, margin, tag="slice-f32", channels=(0,),
                   components=False, moved=None):
     """Boxes of a float32 det path on the card against the CPU run (`cpu`,
-    `f32`: one list of flat boxes per page). The two runs' maps agree to
+    `f32`: one list of flat boxes per page; `ref`, the CPU run's
+    det_reference: its maps and its post process). The two runs' maps agree to
     rounding, so a pixel whose value lies within that rounding of the
     threshold may binarize differently in one of `channels` and change the
     boxes of its component. Checked: every pixel that binarizes differently
@@ -1720,18 +2154,18 @@ def compare_boxes(deter_cpu, deter32, pages, cpu, f32, margin, tag="slice-f32", 
     import torch
 
     channels = list(channels)
-    batch, shapes = _det_batch(deter_cpu, pages)
+    batch, shapes = _det_batch(deter32, pages)
     maps_gpu = deter32.runner(batch)["maps"].float()
     m_gpu = maps_gpu.cpu()[..., channels]
-    m_cpu = deter_cpu.runner(batch)["maps"].float().cpu()[..., channels]
+    m_cpu = ref["maps"][..., channels]
     diff = float((m_gpu - m_cpu).abs().max())
-    thresh = deter_cpu.det_post_process_class.thresh
+    thresh = ref["post"].thresh
     flips = (m_gpu > thresh) != (m_cpu > thresh)
     near = (m_cpu - thresh).abs() <= 2 * diff
     check(bool((~flips | near).all()), "a pixel far from the threshold binarizes differently")
     flipped = flips.any(-1)
     post_gpu = deter32.det_post_process_class({"maps": maps_gpu}, shapes)
-    post_cpu = deter_cpu.det_post_process_class({"maps": maps_gpu.cpu()}, shapes)
+    post_cpu = ref["post"]({"maps": maps_gpu.cpu()}, shapes)
     for i, (a, b) in enumerate(zip(post_gpu, post_cpu)):
         check(torch.equal(torch.from_numpy(a["points"]), torch.from_numpy(b["points"])),
               "page %d: on the same map, cuda postprocess boxes != cpu" % i)
@@ -1817,26 +2251,17 @@ def _holds_flip(points, flip_lo, flip_hi):
     return bool(((flip_lo <= hi) & (flip_hi >= lo)).all(1).any())
 
 
-def compare_texts(ocr_cpu, ocr32, pages, cpu, f32, pairs, tag="slice-f32", excused=()):
-    """Texts of the float32 slice on the card against the CPU run. On the
-    CPU's line crops (turned as the CPU's classifier turns them, where the
-    slice has one), the argmax must agree at every step whose CPU top-2
+def compare_texts(ref, ocr32, cpu, f32, pairs, tag="slice-f32", excused=()):
+    """Texts of the float32 slice on the card against the CPU run (`ref`,
+    its text_reference). On the CPU's line crops (turned as the CPU's
+    classifier turns them, where the slice has one), the argmax must agree
+    at every step whose CPU top-2
     margin exceeds twice the largest CPU/card probability difference; then
     every equal box of compare_boxes must read the same on both, unless its
     line holds a step within that of a tie or is in `excused` (CPU lines
     whose cls label may differ)."""
-    import cv2
-    import numpy as np
-
-    from pytorchocr_tpu_torch.deploy.run_ocr import crop_lines
-
-    parts = []
-    for path, page in zip(pages, cpu):
-        parts.extend(crop_lines(cv2.imread(path), [np.array(b).reshape(-1, 2) for b, _, _ in page]))
-    parts = ocr_cpu.turn_upright(parts)
-    batch = np.stack([ocr32.recer._prep(im) for im in parts])
-    p_gpu = ocr32.recer.runner(batch).float().cpu()
-    p_cpu = ocr_cpu.recer.runner(batch).float()
+    p_gpu = ocr32.recer.runner(ref["batch"]).float().cpu()
+    p_cpu = ref["probs"]
     diff = float((p_gpu - p_cpu).abs().max())
     top2 = p_cpu.topk(2, dim=2).values
     decisive = (top2[..., 0] - top2[..., 1]) > 2 * diff
@@ -1886,6 +2311,7 @@ def match_iou(runs, refs, min_iou=0.5):
     return matched, same
 
 
+@beside
 def card_events(fn):
     """The card's kernels and copies in one call of `fn`, from a torch.profiler
     trace of the card's activity (key_averages: one event per name, with its
@@ -1932,6 +2358,7 @@ def device_time(fn, call_s, sums=()):
     )
 
 
+@beside
 def stage_breakdown(deter, pages, kind, recer=None, clser=None):
     """Host-clock stage times of one det (and, with `recer`, rec; with
     `clser`, cls before rec) pass over `pages`, each ending in a sync; the
@@ -2396,18 +2823,18 @@ GRAD_LIMIT = 2e-2
 # 4.42e-2 over five runs, classifier 5.48e-3 and 6.48e-2 over four, on an
 # NVIDIA H100 80GB HBM3, 700 W)
 ELEM_SCALE = 2.5e-2
-# phases 14-15: a leaf's elementwise floor is this many times the CPU float32
-# step's worst error in it. The deeper nets at bs 2 carry float32 rounding of
-# 0.14-0.2 of a leaf's largest |g| in their layer3-4 weights, on the CPU as on
-# the card, and the card's worst came to 1.43 (PSE) and 1.22 (PAN) times the
-# CPU's; TF32 on, 24.1 and 6.5 times (on an NVIDIA H100 80GB HBM3, 700 W)
-DEEP_FLOOR_X = 3.0
 
 
 def db_zero_grad_leaves(g_ref):
     """DB's biases whose gradient is 0 up to rounding: the deconv1 biases,
     which feed a train-mode BN."""
     return {k for k in g_ref if k.endswith("deconv1.bias")}
+
+
+def db_student_zero_grad(g_ref):
+    """Phase 19's det students: DB's deconv1 biases and the MobileNetV3
+    biases that feed a train-mode BN."""
+    return db_zero_grad_leaves(g_ref) | bn_fed_biases(g_ref)
 
 
 def bn_fed_biases(g_ref):
@@ -2418,7 +2845,7 @@ def bn_fed_biases(g_ref):
             and float(g_ref[k].norm()) < 1e-4 * float(g_ref[k[:-4] + "weight"].norm())}
 
 
-def held_step(step, ref, floor, lr, skip=frozenset(), focus=None, rounding=False):
+def held_step(step, ref, floor, lr, skip=frozenset(), focus=None):
     """How far a card step `step` (card_step's tuple) lands from the float64
     reference `ref` (losses, gradients, state_dict), each leaf's rounding
     floor `floor` being the CPU float32 step's worst gradient error in that
@@ -2432,19 +2859,18 @@ def held_step(step, ref, floor, lr, skip=frozenset(), focus=None, rounding=False
     ratio of a leaf's floor to the largest |g| that needed it: how many
     times smaller the floors could be and still excuse every move past 1e-2
     lr. The leaves of `skip` (gradient 0 up to rounding) stay out of the
-    gradient figures. With `rounding` the 2 lr bound also allows 1e-6 |p|,
-    as the 1e-2 lr one does: a float32 parameter stepped by lr one way on
-    the card and the other way in float64 lands 2 lr apart plus the float32
-    rounding of p +- lr. `first` names the first parameter past its bound:
+    gradient figures. `first` names the first parameter past its bound:
     its leaf, |diff| / lr, the two gradients and p before the update."""
     l_card, g_card, card_sd, p0 = step
     l_ref, g_ref, ref_sd = ref
     loss = max((abs(l_card[k] - l_ref[k]) / abs(l_ref[k]), k) for k in l_ref)
     worst, elem, focused = (0.0, ""), (0.0, ""), (0.0, "")
     leaves = []  # (elementwise error over the floor, name, over max |g| of the leaf)
+    rels = {}  # relative L2 of each held leaf
     for k, g in g_ref.items():
         if k not in skip:
             rel = (float((g_card[k] - g).norm() / g.norm()), k)
+            rels[k] = rel[0]
             worst = max(worst, rel)
             if focus and focus in k:
                 focused = max(focused, rel)
@@ -2458,8 +2884,7 @@ def held_step(step, ref, floor, lr, skip=frozenset(), focus=None, rounding=False
         diff = (card_sd[k] - ref_sd[k]).abs()
         near0 = (g.abs() <= floor[k]) | (g.abs() < 1e-6)
         moved = (diff > 1e-2 * lr + 1e-6 * p0[k].abs()) & (g.abs() >= 1e-6)
-        past = (near0 & (diff > 2 * lr + (1e-6 * p0[k].abs() if rounding else 0.0))) | (
-            moved & ~near0)
+        past = (near0 & (diff > 2 * lr)) | (moved & ~near0)
         outside += int(past.sum())
         if first is None and past.any():
             i = int(past.flatten().nonzero()[0])
@@ -2476,12 +2901,12 @@ def held_step(step, ref, floor, lr, skip=frozenset(), focus=None, rounding=False
             bn = max(bn, float(((card_sd[k] - v).abs() / (v.abs() + 1e-2)).max()))
     return dict(value=l_card["loss"], loss=loss, grad=worst, focused=focused, elem=elem,
                 outside=outside, first=first, excused=excused, total=total, margin=margin, bn=bn,
-                leaves=sorted(leaves, reverse=True))
+                leaves=sorted(leaves, reverse=True), rels=rels)
 
 
 def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE, TRAIN_SIZE),
                      tag="train-f32", schedule=None, zero_grad=db_zero_grad_leaves,
-                     focus=None, card_floors=False, explained=None, deep=False, select=None,
+                     focus=None, card_floors=False, explained=None, select=None,
                      loss_pieces=False, prepare=None):
     """One float32 train step (TF32 off) through the trainer's step on the
     card against the float64 reference on the CPU (f64_reference_step), from
@@ -2503,52 +2928,68 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
     value they take on the card's own binarisation: where a pixel lies
     within rounding of the threshold the two runs binarise it differently,
     so such a term is held to that value (1e-6) and its float64 value is
-    reported beside it. With `deep` (phases 14-15) a leaf's relative-L2
-    limit is the larger of GRAD_LIMIT and the CPU float32 step's own
-    relative L2 in that leaf (ResNet-50's BN gradients at bs 2 carry more
-    float32 rounding than that limit, on the CPU as on the card), and its
-    floor DEEP_FLOOR_X times its CPU float32 error, and held_step gets
-    `rounding`. `select` goes to the float64 step (f64_reference_step).
+    reported beside it. `select` goes to the float64 step (f64_reference_step).
     The float64 step and the CPU float32 step (the floors) take the pieces
     of the piecewise-linear functions that the card's TF32-off forward took
     (Branches), and with `loss_pieces` those of its loss and its
     comparisons (phase 11: DB's OHEM cut, its L1's sign, its BCE's clamp);
     the elements where they would have taken another piece are counted and
     reported. `prepare(model)` changes the seeded weights of every step
-    alike (phase 17: STAR-Net's TPS off its RARE init)."""
-    import torch
-
+    alike (phase 17: STAR-Net's TPS off its RARE init). The float64 and CPU
+    float32 steps run in the CPU reference process (f64_steps); this
+    returns a function that waits for them and makes the checks and the
+    report (held_f32_step), so the card goes on meanwhile. The returned
+    function returns (got, control), held_step's readings."""
     name = tag.split("-")[0]
     branches = Branches()
     step = card_step(config, dev, batch, tf32=False, schedule=schedule, branches=branches,
                      loss_pieces=loss_pieces, prepare=prepare)
+    records = {role: [(kind, t.cpu()) for kind, t in recs]
+               for role, recs in branches.records.items()}
+    job = cpu_job(f64_steps, config, batch, schedule, select, records, loss_pieces, prepare)
+    control_step = card_step(config, dev, batch, tf32=True, schedule=schedule, prepare=prepare)
+    return lambda: held_f32_step(job.result(), step, control_step, name, card, what, tag,
+                                 zero_grad, focus, card_floors, explained, loss_pieces)
+
+
+def f64_steps(config, batch, schedule, select, records, loss_pieces, prepare):
+    """compare_f32_step's CPU work (a job of the CPU reference process): the
+    float64 reference step and the CPU float32 step, both taking the card's
+    pieces (`records`, a Branches' records on the CPU)."""
+    import torch
+
+    branches = Branches()
+    branches.records = records
     m_ref, opt, l_ref, g_ref = f64_reference_step(config, batch, schedule, select, branches,
                                                   loss_pieces, prepare)
-    ref = l_ref, g_ref, m_ref.state_dict()
     f64_flips, branches.flips = branches.report(), {}
-    skip = zero_grad(g_ref)
     l_cpu, g_cpu32 = card_step(config, torch.device("cpu"), batch, tf32=False,
                                schedule=schedule, branches=branches, replay=True,
                                loss_pieces=loss_pieces, prepare=prepare)[:2]
-    l_cpu = l_cpu["loss"]
-    floor = {k: float((g - g_ref[k]).abs().max()) for k, g in g_cpu32.items()}
-    rel_cpu = {k: float((g - g_ref[k]).norm() / g_ref[k].norm())
-               for k, g in g_cpu32.items() if k not in skip}
+    return dict(l_ref=l_ref, g_ref=g_ref, ref_sd=m_ref.state_dict(),
+                lr=float(opt.lr_schedule(0)), f64_flips=f64_flips, cpu_flips=branches.report(),
+                l_cpu=l_cpu["loss"],
+                floor={k: float((g - g_ref[k]).abs().max()) for k, g in g_cpu32.items()},
+                rel_cpu={k: float((g - g_ref[k]).norm() / g_ref[k].norm())
+                         for k, g in g_cpu32.items()})
+
+
+def held_f32_step(steps, step, control_step, name, card, what, tag, zero_grad, focus, card_floors,
+                  explained, loss_pieces):
+    """compare_f32_step's checks and report, on f64_steps's result `steps`."""
+    l_ref, g_ref = steps["l_ref"], steps["g_ref"]
+    ref = l_ref, g_ref, steps["ref_sd"]
+    skip = zero_grad(g_ref)
+    l_cpu, floor, lr = steps["l_cpu"], steps["floor"], steps["lr"]
+    rel_cpu = {k: v for k, v in steps["rel_cpu"].items() if k not in skip}
     g_cpu = max(rel_cpu.values())
-    limit = {k: max(GRAD_LIMIT, rel_cpu[k]) if deep else GRAD_LIMIT for k in rel_cpu}
-    del g_cpu32
-    lr = float(opt.lr_schedule(0))
     if card_floors:
         floor = {k: max(f, ELEM_SCALE * float(g_ref[k].abs().max())) for k, f in floor.items()}
-    if deep:
-        floor = {k: DEEP_FLOOR_X * f for k, f in floor.items()}
-    got = held_step(step, ref, floor, lr, skip, focus, rounding=deep)
-    control_step = card_step(config, dev, batch, tf32=True, schedule=schedule, prepare=prepare)
-    control = held_step(control_step, ref, floor, lr, skip, focus, rounding=deep)
+    got = held_step(step, ref, floor, lr, skip, focus)
+    control = held_step(control_step, ref, floor, lr, skip, focus)
     l_card, g_card = step[:2]
     floor_name = ("floor (the larger of its CPU float32 worst error and %g of its largest |g|)"
-                  % ELEM_SCALE if card_floors else "%g x CPU float32 worst error" % DEEP_FLOOR_X
-                  if deep else "CPU float32 worst error")
+                  % ELEM_SCALE if card_floors else "CPU float32 worst error")
     for what_, r in (("TF32 off", got), ("TF32 on", control)):
         say(tag, "%s, the leaves furthest from the float64 step against their %s: %s (error "
             "over the floor, error over the leaf's largest |g|); the worst error over a leaf's "
@@ -2572,22 +3013,21 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
               "%s f32 step: %s has a gradient" % (name, k))
     def over_limit(step_):
         g = step_[1]
-        return max((float((g[k] - g_ref[k]).norm() / g_ref[k].norm()) / limit[k], k)
-                   for k in limit)
+        return max((float((g[k] - g_ref[k]).norm() / g_ref[k].norm()) / GRAD_LIMIT, k)
+                   for k in rel_cpu)
 
     over, over_control = over_limit(step), over_limit(control_step)
-    check(over[0] <= 1.0, "%s f32 step: gradient %s off by %.3g of its relative-L2 limit %.3g"
-          % (name, over[1], over[0], limit[over[1]]))
+    check(over[0] <= 1.0, "%s f32 step: gradient %s off by %.3g of the relative-L2 limit %.3g"
+          % (name, over[1], over[0], GRAD_LIMIT))
     check(got["elem"][0] <= 1.0, "%s f32 step: gradient %s off by %.3g of its leaf's %s"
           % ((name,) + got["elem"][::-1] + (floor_name,)))
     check(got["outside"] == 0, "%s f32 step: %d parameters moved past their bound after the "
           "update; the first: %s" % (name, got["outside"], got["first"]))
     check(got["bn"] <= 1e-3, "%s f32 step: BN running statistics off by %.3g" % (name, got["bn"]))
-    either = card_floors or deep
-    check(over_control[0] > 1.0 or (either and control["elem"][0] > 1.0),
+    check(over_control[0] > 1.0 or (card_floors and control["elem"][0] > 1.0),
           "%s f32 step: the TF32 control's worst gradient is %.3g of its limit%s"
           % (name, over_control[0], " and elementwise within its floor (%.3g of it)"
-             % control["elem"][0] if either else ""))
+             % control["elem"][0] if card_floors else ""))
     say(tag, "one float32 step (%s, TF32 off) through the trainer's step on %s "
         "against the same step in float64 on the CPU: loss %.6f against %.6f (rtol 1e-4, each "
         "term too), gradients worst %.2e relative L2 (%s; limit %s) and elementwise at most "
@@ -2596,9 +3036,7 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
         "= %.2e; the floors could be %.3g times smaller), BN running statistics worst %.2e of "
         "|v| + 1e-2; %d biases that feed a train-mode BN at gradient 0 on both"
         % (what, card, l_card["loss"], l_ref["loss"], got["grad"][0], got["grad"][1],
-           "%.0e" % GRAD_LIMIT if not deep else "the larger of %.0e and the CPU float32 "
-           "step's own in the leaf; the worst leaf at %.3g of its limit, %s" % (
-               GRAD_LIMIT, over[0], over[1]),
+           "%.0e" % GRAD_LIMIT,
            got["elem"][0], floor_name, got["elem"][1], got["excused"], got["total"],
            2 * lr, got["margin"], got["bn"], len(skip)))
     say(tag, "the control, the same step with TF32 on: loss %.6f (worst term %.2e "
@@ -2607,7 +3045,7 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
         "float32 step (a report): loss %.6f, gradients worst %.2e relative L2"
         % (control["value"], control["loss"][0], control["grad"][0], control["grad"][1],
            control["elem"][0], control["outside"], control["bn"], l_cpu, g_cpu))
-    got["pieces"] = "float64 %s; CPU float32 %s" % (f64_flips, branches.report())
+    got["pieces"] = "float64 %s; CPU float32 %s" % (steps["f64_flips"], steps["cpu_flips"])
     say(tag, "elements on another piece of a piecewise-linear function (or another side of "
         "a comparison) of the %s than on the card with TF32 off, by function (the float64 "
         "and CPU float32 steps take the card's): %s"
@@ -2623,7 +3061,8 @@ def compare_f32_step(config, dev, batch, card, what="bs 2, %dx%d" % (TRAIN_SIZE,
     return got, control
 
 
-def loader_breakdown(config, label, n=16):
+@quiet
+def loader_breakdown(config, label, n=8):
     """Host ms per sample of each op of the config's train chain, one thread,
     over the first `n` pages of `label` (decode included: it is cached after
     the first epoch), and the polygons a sample keeps after the crop."""
@@ -2773,9 +3212,7 @@ def phase_train(dev, card, tmp):
     import numpy as np
     import torch
 
-    from pytorchocr_tpu_torch.tools import eval as eval_cli
     from pytorchocr_tpu_torch.tools import program
-    from pytorchocr_tpu_torch.tools import train as train_cli
     from pytorchocr_tpu_torch.utils.logging import get_logger
 
     from pytorchocr_tpu_torch import native
@@ -2796,15 +3233,13 @@ def phase_train(dev, card, tmp):
     say("train-loader", "host ms per sample, one thread: %s (%.1f polygons a sample after the "
         "crop; the native border map)" % (ops_ms, polys))
     batches = first_batches(config, 2, 2)
-    compare_f32_step(config, dev, batches[0], card, loss_pieces=True)
+    f32_check = compare_f32_step(config, dev, batches[0], card, loss_pieces=True)
     checkpoint_round_trip(config, dev, batches, tmp)
 
     # the entry point, as `python -m pytorchocr_tpu_torch.tools.train` runs it;
     # every K1 call of its evaluate is recorded and held to the plain version after
     with recorded_kernels() as rec:
-        t0 = time.perf_counter()
-        report = train_cli.run(argv)
-        run_s = time.perf_counter() - t0
+        report, run_s = train_run(argv)
     k1 = rec.k1_launches
     shapes = rec.hold("train-eval")
     losses = report["losses"]
@@ -2833,11 +3268,12 @@ def phase_train(dev, card, tmp):
            best["recall"], best["fps"], card))
 
     eval_argv = argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")]
-    eval_cli.run(eval_argv)
-    metric = eval_cli.run(eval_argv)  # warm: cuDNN has seen the shapes
+    eval_run(eval_argv)
+    metric = eval_run(eval_argv)  # warm: cuDNN has seen the shapes
     say("train-eval", "tools.eval.run on the latest checkpoint, second call: hmean %.4f (the "
         "train run's %.4f), %.2f pages/s on %s" % (metric["hmean"], best["hmean"], metric["fps"],
                                                     card))
+    later(f32_check)
 
     say("train", "profiler, %d train steps with their loader waits: %s on %s"
         % (PROFILE_STEPS, profile_loop(config, dev, metric=False,
@@ -2990,12 +3426,13 @@ def served_equals_eval(tag, kind, cfg_path, ckpt, label, dev, card, batch_size, 
         want, gaps = eval_reading(config, model, dev, dtype != torch.float32, label, batch_size)
         paths = [ln.split("\t")[0] for ln in open(label).read().splitlines()]
         imgs = [cv2.imread(p) for p in paths]
-        t0 = time.perf_counter()
-        got = []
-        for c in range(0, len(imgs), batch_size):
-            got += [t for t, _ in server.run_batch(imgs[c : c + batch_size])]
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
+        with paused():
+            t0 = time.perf_counter()
+            got = []
+            for c in range(0, len(imgs), batch_size):
+                got += [t for t, _ in server.run_batch(imgs[c : c + batch_size])]
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
     differ = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
     excused = [i for i in differ if gaps[i] < 1e-4]
     check(len(got) == len(want) == len(paths) and len(differ) == len(excused),
@@ -3012,10 +3449,11 @@ def served_equals_eval(tag, kind, cfg_path, ckpt, label, dev, card, batch_size, 
 
 
 # iterations of the training loop that profile_loop traces (4 before phase
-# 18 was added and the script needed the time)
-PROFILE_STEPS = 2
+# 18 was added, 2 before phase 19: the script needed the time)
+PROFILE_STEPS = 1
 
 
+@quiet
 def profile_loop(config, dev, metric=True, sums=(), steps=PROFILE_STEPS):
     """Card busy over `steps` iterations of the trainer's loop (device_time,
     with `sums`): the loader wait, the copy, the step and, with `metric`
@@ -3153,6 +3591,7 @@ def lines_overfit(kind, config, dev, card, tmp):
     model, opt, step = train_parts(cfg, dev, amp=True, schedule=(OVERFIT_CAP, 1))
     eval_step = make_eval_step(model, amp=True)
     curve, hits, done = [], 0, 0
+    note = beside_worker()
     t0 = time.perf_counter()
     while done < OVERFIT_CAP and hits < OVERFIT_HITS:
         for _ in range(OVERFIT_EVERY):
@@ -3167,10 +3606,10 @@ def lines_overfit(kind, config, dev, card, tmp):
           "within %d)" % (tag, hits, OVERFIT_N, done, OVERFIT_HITS, OVERFIT_CAP))
     say(tag, "one fixed batch of %d drawn lines (%s, no augmentation), bf16, Adam at LR %g: "
         "%d of %d %s read back (eval mode) after %d steps (threshold %d within %d), %.1f s "
-        "(%.2f steps/s with a read every %d); loss and lines read every %d steps: %s on %s"
+        "(%.2f steps/s with a read every %d%s); loss and lines read every %d steps: %s on %s"
         % (OVERFIT_N, "1-25 characters" if rec else "5-25 characters, half turned by 180 "
            "degrees", OVERFIT_OPTIMIZER["base_lr"], hits, OVERFIT_N, what, done, OVERFIT_HITS,
-           OVERFIT_CAP, secs, done / secs, OVERFIT_EVERY, OVERFIT_EVERY,
+           OVERFIT_CAP, secs, done / secs, OVERFIT_EVERY, note, OVERFIT_EVERY,
            ", ".join("%d: %.3f %d" % c for c in curve[:: max(1, len(curve) // 12)]), card))
     out = os.path.join(tmp, tag + "_out")
     save_model(model, opt, {"start_epoch": 1, "global_step": done, "best_model": {}}, out,
@@ -3185,16 +3624,15 @@ def lines_overfit(kind, config, dev, card, tmp):
            what))
 
 
-def phase_lines_train(dev, card, tmp, kind):
+def phase_lines_train(dev, card, tmp, kind, lines):
     """Phase 12 (kind "rec": CRNN) or 13 (kind "cls": the direction
-    classifier): the config as published on drawn lines."""
+    classifier): the config as published on drawn lines (`lines`, job_lines's
+    train and eval label files)."""
     import logging
 
     import numpy as np
     import torch
 
-    from pytorchocr_tpu_torch.tools import eval as eval_cli
-    from pytorchocr_tpu_torch.tools import train as train_cli
     from pytorchocr_tpu_torch.utils.config import load_config
     from pytorchocr_tpu_torch.utils.logging import get_logger
 
@@ -3204,11 +3642,7 @@ def phase_lines_train(dev, card, tmp, kind):
         h.setLevel(logging.WARNING)
     rec = kind == "rec"
     cfg_file, shape = (REC_TRAIN_CFG, "1x32x320") if rec else (CLS_TRAIN_CFG, "3x48x192")
-    lengths = (1, 25) if rec else (5, 25)  # cls: long enough that a turn shows
-    train_label = make_lines(os.path.join(tmp, kind + "_train"), LINES_TRAIN, SEED + 31 + rec,
-                             lengths, turn_half=not rec)
-    eval_label = make_lines(os.path.join(tmp, kind + "_eval"), LINES_EVAL, SEED + 41 + rec,
-                            lengths, turn_half=not rec)
+    train_label, eval_label = lines.result()
     small = os.path.join(tmp, kind + "_train", "first.txt")
     with open(small, "w") as f:
         f.write("".join(open(train_label).readlines()[: 2 * F32_BS]))
@@ -3218,23 +3652,23 @@ def phase_lines_train(dev, card, tmp, kind):
     out = os.path.join(tmp, kind + "_out")
     argv = lines_argv(cfg_file, out, train_label, eval_label, epochs)
     config = lines_config(argv)
-    ops_ms, _ = loader_breakdown(config, train_label, n=64)
+    ops_ms, _ = loader_breakdown(config, train_label, n=32)
     say(kind + "-loader", "host ms per line, one thread: %s (%s, %d drawn lines)"
         % (ops_ms, "RecAug with TIA" if rec else "RecAug without TIA, RandAugment (PIL)",
            LINES_TRAIN))
     batches = first_batches(config, 2, F32_BS, small)
-    compare_f32_step(config, dev, batches[0], card, what="bs %d, %s" % (F32_BS, shape),
-                     tag=kind + "-f32", schedule=schedule, zero_grad=bn_fed_biases,
-                     focus="rnn." if rec else None, card_floors=True)
+    f32_check = compare_f32_step(config, dev, batches[0], card,
+                                 what="bs %d, %s" % (F32_BS, shape), tag=kind + "-f32",
+                                 schedule=schedule, zero_grad=bn_fed_biases,
+                                 focus="rnn." if rec else None, card_floors=True)
     if rec:
         ctc_on_card(dev)
         checkpoint_round_trip(config, dev, batches, tmp, tag="rec-ckpt", schedule=schedule)
     lines_overfit(kind, config, dev, card, tmp)
+    later(f32_check)
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    report = train_cli.run(argv)
-    run_s = time.perf_counter() - t0
+    report, run_s = train_run(argv)
     losses = report["losses"]
     check(report["steps"] == steps and len(losses) == steps,
           "%s-train: %d steps, not %d" % (kind, report["steps"], steps))
@@ -3254,7 +3688,7 @@ def phase_lines_train(dev, card, tmp, kind):
     report_lines_train(kind + "-train", report, run_s, card)
 
     ckpt = os.path.join(out, "best_accuracy")
-    metric = eval_cli.run(argv + ["Global.checkpoints=%s" % ckpt])
+    metric = eval_run(argv + ["Global.checkpoints=%s" % ckpt])
     keys = ("acc", "norm_edit_dis") if rec else ("acc",)
     check(all(metric[k] == best[k] for k in keys), "%s-eval: tools.eval.run gives %s, the train "
           "run logged %s" % (kind, [metric[k] for k in keys], [best[k] for k in keys]))
@@ -3307,35 +3741,30 @@ def sized(config, side):
 
 def step_flips(config, dev, batch, schedule):
     """The seeded model's train-mode forward in float32 on the card (TF32
-    off) and in float64 on the CPU. Returns the pixels that the two put on
-    different sides of the loss's thresholds (its `selections`: OHEM's cut,
-    the kernel-sample mask, the IoU logs' binarisations), per selection; the
-    IoU logs on the card's binarised maps (computed on the CPU from them and
-    the batch's labels); a `select` that hands the loss the card's two
-    masks, for the float64 reference step; and the float64 loss terms with
-    the float64 run's own masks."""
+    off), and the same forward in float64 on the CPU as a job of the CPU
+    reference process (float64_selections). Returns that job (its result:
+    the pixels that the two put on different sides of the loss's thresholds,
+    per selection of `selections`: OHEM's cut, the kernel-sample mask, the
+    IoU logs' binarisations; and the float64 loss terms with the float64
+    run's own masks); the IoU logs on the card's binarised maps (computed on
+    the CPU from them and the batch's labels); and a `select` that hands the
+    loss the card's two masks, for the float64 reference step."""
     import torch
 
     from pytorchocr_tpu_torch.losses import basic, build_loss
-    from pytorchocr_tpu_torch.losses.det_pse_loss import flipped_pixels
     from pytorchocr_tpu_torch.trainer import batch_to_device, build_input_transform
 
     loss = build_loss(config["Loss"])
     transform = build_input_transform(
         config["Global"].get("_device_normalize_spec", {}).get("Train"))
-    sel = []
-    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
-        model = train_parts(config, device, amp=False, schedule=schedule)[0].to(dtype).train()
-        b = tuple(x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x
-                  for x in batch_to_device(batch, device))
-        x = b[0] if transform is None else transform(b[0])
-        with torch.no_grad(), float32_on_card():
-            maps = model(x.to(dtype).permute(0, 3, 1, 2), data=b)["maps"].to(dtype)
-        sel.append({k: v.cpu() for k, v in loss.selections({"maps": maps}, b).items()})
-        del model
-    with torch.no_grad():
-        own = {k: float(v) for k, v in loss({"maps": maps}, b).items()}
-    card = sel[0]
+    model = train_parts(config, dev, amp=False, schedule=schedule)[0].train()
+    b = batch_to_device(batch, dev)
+    x = b[0] if transform is None else transform(b[0])
+    with torch.no_grad(), float32_on_card():
+        maps = model(x.permute(0, 3, 1, 2), data=b)["maps"].float()
+    card = {k: v.cpu() for k, v in loss.selections({"maps": maps}, b).items()}
+    del model
+    b = batch_to_device(batch, torch.device("cpu"))
     gt_texts, masks = b[1], b[-1]
     gt_kernel = b[2][:, -1] if b[2].dim() == 4 else b[2]
     explained = {
@@ -3343,13 +3772,46 @@ def step_flips(config, dev, batch, schedule):
         "iou_kernel": float(basic.iou_binary(card["kernel>0"].int(), gt_kernel,
                                              masks * gt_texts)),
     }
-
-    def select(texts, gt_texts, training_masks):
-        return card["ohem"].to(texts.dtype), card["kernel_mask"].to(texts.dtype)
-
-    return flipped_pixels(*sel), explained, select, own
+    return (cpu_job(float64_selections, config, batch, schedule, card), explained,
+            CardSelections(card))
 
 
+def float64_selections(config, batch, schedule, card):
+    """step_flips's float64 forward on the CPU: the pixels on another side
+    of a loss threshold than on the card (`card`, its selections), and the
+    float64 loss terms with its own masks."""
+    import torch
+
+    from pytorchocr_tpu_torch.losses import build_loss
+    from pytorchocr_tpu_torch.losses.det_pse_loss import flipped_pixels
+    from pytorchocr_tpu_torch.trainer import batch_to_device, build_input_transform
+
+    loss = build_loss(config["Loss"])
+    transform = build_input_transform(
+        config["Global"].get("_device_normalize_spec", {}).get("Train"))
+    cpu = torch.device("cpu")
+    model = train_parts(config, cpu, amp=False, schedule=schedule)[0].double().train()
+    b = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+              for x in batch_to_device(batch, cpu))
+    x = b[0] if transform is None else transform(b[0])
+    with torch.no_grad():
+        maps = model(x.double().permute(0, 3, 1, 2), data=b)["maps"].double()
+        own = {k: float(v) for k, v in loss({"maps": maps}, b).items()}
+    return flipped_pixels(card, loss.selections({"maps": maps}, b)), own
+
+
+class CardSelections:
+    """The float64 step's PSE/PAN loss `select`: the card's OHEM selection
+    and kernel-sample mask (step_flips)."""
+
+    def __init__(self, card):
+        self.card = {k: v.cpu() for k, v in card.items()}
+
+    def __call__(self, texts, gt_texts, training_masks):
+        return (self.card["ohem"].to(texts.dtype), self.card["kernel_mask"].to(texts.dtype))
+
+
+@quiet
 def loss_ms(config, dev, batch):
     """Card ms of the config's loss, forward and backward, on a train batch
     with random logits at its maps' shape, and of its embedding loss alone
@@ -3417,10 +3879,11 @@ def served_det_equals_eval(tag, config, cfg_path, ckpt, dev, card, channels):
         load_model(config, model)
         eval_step = make_eval_step(model, build_input_transform(
             config["Global"].get("_device_normalize_spec", {}).get("Eval")))
-        t0 = time.perf_counter()
-        served = [deter.run(p) for p in paths]
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
+        with paused():
+            t0 = time.perf_counter()
+            served = [deter.run(p) for p in paths]
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
         for i, (path, batch) in enumerate(zip(paths, loader)):
             maps_eval = eval_step(torch.from_numpy(batch[0]).to(dev))["maps"].float()
             want = sort_boxes(post({"maps": maps_eval}, batch[1])[0]["points"])
@@ -3476,9 +3939,7 @@ def phase_det_train(dev, card, tmp, kind, train_label, eval_label):
     import numpy as np
     import torch
 
-    from pytorchocr_tpu_torch.tools import eval as eval_cli
     from pytorchocr_tpu_torch.tools import program
-    from pytorchocr_tpu_torch.tools import train as train_cli
     from pytorchocr_tpu_torch.utils.config import load_config
     from pytorchocr_tpu_torch.utils.logging import get_logger
 
@@ -3502,24 +3963,25 @@ def phase_det_train(dev, card, tmp, kind, train_label, eval_label):
         f.write("".join(open(train_label).readlines()[: max(spec["bs"], 4)]))
     small = sized(config, spec["f32_size"])
     batches = first_batches(small, 2, 2, few)
-    flips, explained, select, own = step_flips(small, dev, batches[0], schedule)
-    what = ("bs 2, %dx%d%s; pixels on the other side of a loss threshold than in float64: %s, "
-            "so the float64 step sums over the card's OHEM selection and kernel-sample mask" % (
-                spec["f32_size"], spec["f32_size"],
-                " (cut from 640 to keep the CPU's float64 step short)"
-                if spec["f32_size"] != TRAIN_SIZE else "", flips))
-    compare_f32_step(small, dev, batches[0], card, what=what, tag=kind + "-f32",
-                     schedule=schedule, zero_grad=bn_fed_biases, explained=explained,
-                     deep=True, select=select)
-    say(kind + "-f32", "the float64 forward's loss terms with its own masks (a report): %s"
-        % ", ".join("%s %.7f" % kv for kv in sorted(own.items())))
+    flips, explained, select = step_flips(small, dev, batches[0], schedule)
+    what = ("bs 2, %dx%d%s; the float64 step sums over the card's OHEM selection and "
+            "kernel-sample mask" % (spec["f32_size"], spec["f32_size"],
+                                    " (cut from 640 to keep the CPU's float64 step short)"
+                                    if spec["f32_size"] != TRAIN_SIZE else ""))
+    f32_check = compare_f32_step(small, dev, batches[0], card, what=what, tag=kind + "-f32",
+                                 schedule=schedule, zero_grad=bn_fed_biases,
+                                 explained=explained, select=select)
+
+    def flips_report():
+        pixels, own = flips.result()
+        say(kind + "-f32", "pixels on the other side of a loss threshold than in float64: %s; "
+            "the float64 forward's loss terms with its own masks (a report): %s"
+            % (pixels, ", ".join("%s %.7f" % kv for kv in sorted(own.items()))))
     checkpoint_round_trip(small, dev, batches, tmp, tag=kind + "-ckpt", schedule=schedule)
 
     torch.cuda.reset_peak_memory_stats(dev)
     with recorded_kernels() as rec:
-        t0 = time.perf_counter()
-        report = train_cli.run(argv)
-        run_s = time.perf_counter() - t0
+        report, run_s = train_run(argv)
     peak = torch.cuda.max_memory_allocated(dev)
     launches = rec.k1_launches, rec.k2_launches
     shapes = rec.hold(kind + "-train-eval")
@@ -3557,7 +4019,7 @@ def phase_det_train(dev, card, tmp, kind, train_label, eval_label):
         % (EVAL_PAGES, launches[0], rec.alternations, launches[1], shapes, best["hmean"],
            best["precision"], best["recall"], best["fps"], card))
 
-    metric = eval_cli.run(argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")])
+    metric = eval_run(argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")])
     keys = ("precision", "recall", "hmean")
     check(all(metric[k] == best[k] for k in keys), "%s-eval: tools.eval.run on latest gives "
           "%s, the train run's evaluate %s" % (kind, [metric[k] for k in keys],
@@ -3568,6 +4030,8 @@ def phase_det_train(dev, card, tmp, kind, train_label, eval_label):
     served_det_equals_eval(kind + "-serve", config, os.path.join(out, "config.yml"),
                            os.path.join(out, "best_accuracy"), dev, card,
                            list(range(7)) if kind == "pse" else [0, 1])
+    later(flips_report)
+    later(f32_check)
     whole, emb = loss_ms(config, dev, first_batches(config, 1, spec["bs"], few)[0])
     say(kind + "-train", "the loss, forward and backward, on a train batch of %d at %dx%d: "
         "%.2f ms%s (CUDA events) on %s"
@@ -3600,29 +4064,26 @@ ZOO_CPU_PAGES = 2
 REPVGG_FUSED_TOL = 1e-4
 
 
-def zoo_ocr_path(dev, card, tag, det_cfg, det_pt, margin, rec_cfg, rec_pt, pages):
+def zoo_ocr_path(dev, card, tag, det_cfg, det_pt, margin, rec_cfg, rec_pt, pages, ref):
     """OCRer.run_many of a det and a rec config: float32 on the card (TF32
-    off) against the CPU on the first ZOO_CPU_PAGES pages (compare_boxes,
-    compare_texts), then the bf16 main path on all pages, every K1 launch
-    recorded and held to the plain version, timed and broken into stages.
-    Returns its K1 launches."""
+    off) against the CPU (`ref`, its ref_ocr) on the first ZOO_CPU_PAGES
+    pages (compare_boxes, compare_texts), then the bf16 main path on all
+    pages, every K1 launch recorded and held to the plain version, timed and
+    broken into stages. Returns its K1 launches."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
 
     few = pages[:ZOO_CPU_PAGES]
-    t0 = time.perf_counter()
-    ocr_cpu = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device="cpu")
-    cpu = flat(ocr_cpu.run_many(few))
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = ref["cpu"], ref["cpu_s"]
     check(sum(len(p) for p in cpu) > 0, "%s: no text boxes on the CPU" % tag)
     with float32_on_card():
         ocr32 = OCRer(det_cfg, det_pt, rec_cfg, rec_pt, device=dev, dtype=torch.float32)
         f32 = flat(ocr32.run_many(few))
-        pairs, _ = compare_boxes(ocr_cpu.deter, ocr32.deter, few, box_lists(cpu),
+        pairs, _ = compare_boxes(ref["det"], ocr32.deter, few, box_lists(cpu),
                                  box_lists(f32), margin, tag=tag + "-f32")
-        compare_texts(ocr_cpu, ocr32, few, cpu, f32, pairs, tag=tag + "-f32")
-    del ocr32, ocr_cpu
+        compare_texts(ref["text"], ocr32, cpu, f32, pairs, tag=tag + "-f32")
+    del ocr32
     say(tag + "-f32", "float32 on %s against the CPU on %d of the %d pages (the CPU's run %.1f "
         "s)" % (card, len(few), len(pages), cpu_s))
 
@@ -3635,20 +4096,20 @@ def zoo_ocr_path(dev, card, tag, det_cfg, det_pt, margin, rec_cfg, rec_pt, pages
     check(launches > 0, "%s: the main-path run launched no run-max kernel" % tag)
     lines = sum(len(p) for p in bf16)
     check(lines > 0, "%s: the bf16 run found no text boxes" % tag)
-    secs, _ = timed_runs(lambda: ocr.run_many(pages), 3)
+    secs, _ = timed_runs(lambda: ocr.run_many(pages), 1)
     say(tag + "-bf16", "main path: runmax.launches %d, each == the plain version on its inputs "
-        "(%s); %d lines; %.3f pages/s, %.1f lines/s (%d pages of %dx%d, mean of 3 runs) on %s"
+        "(%s); %d lines; %.3f pages/s, %.1f lines/s (%d pages of %dx%d, one timed run) on %s"
         % (launches, shapes, lines, PAGES / secs, lines / secs, PAGES, H, W, card))
     say(tag + "-bf16", "stages per %d-page call: %s on %s"
         % (PAGES, stage_breakdown(ocr.deter, pages, "db", ocr.recer), card))
     return launches
 
 
-def zoo_det_path(dev, card, tag, det_cfg, det_pt, margin, pages):
+def zoo_det_path(dev, card, tag, det_cfg, det_pt, margin, pages, ref):
     """Deter.run_batch of a DB config: float32 on the card against the CPU
-    on the first ZOO_CPU_PAGES pages, then the bf16 main path on all pages
-    with every K1 launch held to the plain version, timed and broken into
-    stages. Returns its K1 launches."""
+    (`ref`, its ref_det) on the first ZOO_CPU_PAGES pages, then the bf16
+    main path on all pages with every K1 launch held to the plain version,
+    timed and broken into stages. Returns its K1 launches."""
     import cv2
     import torch
 
@@ -3656,14 +4117,13 @@ def zoo_det_path(dev, card, tag, det_cfg, det_pt, margin, pages):
 
     few = pages[:ZOO_CPU_PAGES]
     imgs = [cv2.imread(p) for p in pages]
-    deter_cpu = Deter(det_cfg, det_pt, device="cpu")
-    cpu = box_lists(deter_cpu.run_batch(imgs[: len(few)]))
+    cpu = ref["cpu"]
     check(sum(len(p) for p in cpu) > 0, "%s: no text boxes on the CPU" % tag)
     with float32_on_card():
         deter32 = Deter(det_cfg, det_pt, device=dev, dtype=torch.float32)
         f32 = box_lists(deter32.run_batch(imgs[: len(few)]))
-        compare_boxes(deter_cpu, deter32, few, cpu, f32, margin, tag=tag + "-f32")
-    del deter32, deter_cpu
+        compare_boxes(ref["det"], deter32, few, cpu, f32, margin, tag=tag + "-f32")
+    del deter32
 
     deter = Deter(det_cfg, det_pt, device=dev)  # bf16 default
     with recorded_kernels() as rec:
@@ -3673,28 +4133,25 @@ def zoo_det_path(dev, card, tag, det_cfg, det_pt, margin, pages):
     shapes = rec.hold(tag + "-bf16")
     check(launches > 0, "%s: the main-path run launched no run-max kernel" % tag)
     check(boxes > 0, "%s: the bf16 run found no text boxes" % tag)
-    secs, _ = timed_runs(lambda: deter.run_batch(imgs), 3)
+    secs, _ = timed_runs(lambda: deter.run_batch(imgs), 1)
     say(tag + "-bf16", "main path: runmax.launches %d, each == the plain version on its inputs "
-        "(%s); %d boxes; %.3f pages/s, %.1f boxes/s (%d pages of %dx%d, mean of 3 runs) on %s"
+        "(%s); %d boxes; %.3f pages/s, %.1f boxes/s (%d pages of %dx%d, one timed run) on %s"
         % (launches, shapes, boxes, PAGES / secs, boxes / secs, PAGES, H, W, card))
     say(tag + "-bf16", "stages per %d-page call: %s on %s"
         % (PAGES, stage_breakdown(deter, pages, "db"), card))
     return launches
 
 
-def repvgg_deploy_check(dev, card, tmp, det_cfg, det_pt, margin, pages):
+def repvgg_fold(tmp, det_cfg, det_pt):
     """The RepVGG fold (reparameterize_state_dict, float64 on the CPU, from
-    the seeded non-trivial BN statistics) served as the config's deploy
-    form (Backbone.deploy: True): float32 on the card, its boxes against the
-    train form's on the same card (compare_boxes's rule), its fused map
-    within REPVGG_FUSED_TOL of the train form's."""
+    the seeded non-trivial BN statistics) as the config's deploy form
+    (Backbone.deploy: True): its .pt, its config and the fold's seconds."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.infer_det import Deter
     from pytorchocr_tpu_torch.modeling.backbones.det_repvgg import reparameterize_state_dict
     from pytorchocr_tpu_torch.utils.config import load_config, save_config
 
-    few = pages[:ZOO_CPU_PAGES]
     train_cpu = Deter(det_cfg, det_pt, device="cpu")
     t0 = time.perf_counter()
     folded = reparameterize_state_dict(train_cpu.runner.model)
@@ -3705,6 +4162,20 @@ def repvgg_deploy_check(dev, card, tmp, det_cfg, det_pt, margin, pages):
     cfg["Architecture"]["Backbone"]["deploy"] = True
     deploy_cfg = os.path.join(tmp, "repvgg_deploy.yml")
     save_config(cfg, deploy_cfg)
+    return deploy_pt, deploy_cfg, fold_s
+
+
+def repvgg_deploy_check(dev, card, det_cfg, det_pt, margin, pages, fold):
+    """The RepVGG fold (repvgg_fold's) served as the config's deploy form:
+    float32 on the card, its boxes against the train form's on the same card
+    (compare_boxes's rule), its fused map within REPVGG_FUSED_TOL of the
+    train form's."""
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+
+    few = pages[:ZOO_CPU_PAGES]
+    deploy_pt, deploy_cfg, fold_s = fold
     fused = {}
 
     def keep(name):
@@ -3730,7 +4201,7 @@ def repvgg_deploy_check(dev, card, tmp, det_cfg, det_pt, margin, pages):
 
         imgs = [cv2.imread(p) for p in few]
         a, b = box_lists(train.run_batch(imgs)), box_lists(deploy.run_batch(imgs))
-        compare_boxes(train, deploy, few, a, b, margin, tag="repvgg-deploy")
+        compare_boxes(det_reference(train, few), deploy, few, a, b, margin, tag="repvgg-deploy")
     say("repvgg-deploy", "the fold of %d blocks (float64 on the CPU, %.2f s, from seeded BN "
         "statistics: running mean ~ N(0, 0.1), var in [0.5, 1.5], scale ~ N(1, 0.1)) served as "
         "Backbone.deploy: True, float32 on %s: fused map max |deploy - train| %.3g of its max "
@@ -3767,40 +4238,45 @@ def seeded_star_net(tmp, pages):
     return path, outside
 
 
-def phase_zoo_serve(dev, card, tmp, pages, db):
+def phase_zoo_serve(dev, card, tmp, pages, db, refs):
     """Phase 16: the rest of the configured zoo served at full width on the
-    DB slice's pages with seeded weights. Returns K1's launches by path."""
-    from pytorchocr_tpu_torch.utils.seeded import nontrivial_bn_, text_like_db_head_
-
+    DB slice's pages with seeded weights, held to the CPU references of
+    job_zoo (`refs`). Returns K1's launches by path."""
     t_phase = time.perf_counter()
-    few = pages[:ZOO_CPU_PAGES]
     k1 = {}
-    det_pt, margin = seeded_det(tmp, DBPP_CFG, few, text_like_db_head_, SEED + 60)
+    ref = refs["dbpp"].result()
     say("dbpp", "seeded DB++ (det_r18_dbpp.yml: ResNet-18, FPN 256 with ASF "
         "scale_channel_spatial, DBHead k=50), head text-like on %d pages: margin %s logits; "
-        "with phase 5's CRNN" % (len(few), _fmt(margin)))
-    k1["DB++"] = zoo_ocr_path(dev, card, "dbpp", DBPP_CFG, det_pt, margin, REC_CFG, db["rec_pt"],
-                              pages)
-    star_pt, outside = seeded_star_net(tmp, pages)
+        "with phase 5's CRNN" % (ZOO_CPU_PAGES, _fmt(ref["margin"])))
+    k1["DB++"] = zoo_ocr_path(dev, card, "dbpp", DBPP_CFG, ref["det_pt"], ref["margin"], REC_CFG,
+                              db["rec_pt"], pages, ref)
+    ref = refs["starnet"].result()
     say("starnet", "seeded STAR-Net (rec_vgg_tps_bilstm_ctc.yml: TPS large F=20, VGG v1, BiLSTM "
         "256, CTC over 6,624 classes), its TPS RARE's init perturbed (fc2 weight ~ N(0, 0.02), "
         "fiducials x1.1): %.1f%% of the grid points outside [-1, 1] on strips of page 0; behind "
-        "phase 5's DB" % (100.0 * outside))
-    check(outside > 0, "starnet: no grid point leaves [-1, 1]")
+        "phase 5's DB" % (100.0 * ref["outside"]))
+    check(ref["outside"] > 0, "starnet: no grid point leaves [-1, 1]")
     k1["STAR-Net"] = zoo_ocr_path(dev, card, "starnet", DET_CFG, db["det_pt"], db["margin"],
-                                  STARNET_CFG, star_pt, pages)
-    for tag, cfg, seed in ZOO_DET:
-        name = os.path.basename(cfg)
-        repvgg = "repvgg" in name
-        det_pt, margin = seeded_det(tmp, cfg, few, text_like_db_head_, seed,
-                                    nontrivial_bn_ if repvgg else None)
+                                  STARNET_CFG, ref["star_pt"], pages, ref)
+    for tag, cfg, _ in ZOO_DET:
+        ref = refs[tag].result()
         say(tag, "seeded %s, head text-like on %d pages: margin %s logits"
-            % (name, len(few), _fmt(margin)))
-        k1[tag] = zoo_det_path(dev, card, tag, cfg, det_pt, margin, pages)
-        if repvgg:
-            repvgg_deploy_check(dev, card, tmp, cfg, det_pt, margin, pages)
+            % (os.path.basename(cfg), ZOO_CPU_PAGES, _fmt(ref["margin"])))
+        k1[tag] = zoo_det_path(dev, card, tag, cfg, ref["det_pt"], ref["margin"], pages, ref)
+        if "fold" in ref:
+            repvgg_deploy_check(dev, card, cfg, ref["det_pt"], ref["margin"], pages, ref["fold"])
     say("zoo", "phase 16 took %.1f s" % (time.perf_counter() - t_phase))
     return k1
+
+
+def off_rare(model):
+    """STAR-Net's TPS off RARE's init, so its every layer has a gradient (a
+    CPU generator's draws: every step alike)."""
+    import torch
+
+    from pytorchocr_tpu_torch.utils.seeded import perturbed_tps_
+
+    perturbed_tps_(model, torch.Generator().manual_seed(SEED + 71))
 
 
 DBPP_TRAIN_CFG = os.path.join(REPO, "configs", "det", "det_r18_dbpp_synth.yml")
@@ -3925,6 +4401,7 @@ def dbpp_overfit(config, cfg_path, dev, card, tmp, train_label):
                             p[1])[0]["points"]) for p in pages)
 
     curve, done, dice, boxes = [], 0, 1.0, 0
+    note = beside_worker()
     t0 = time.perf_counter()
     while done < DBPP_OVERFIT_CAP and boxes < DBPP_OVERFIT_BOXES:
         for _ in range(DBPP_OVERFIT_EVERY):
@@ -3939,10 +4416,10 @@ def dbpp_overfit(config, cfg_path, dev, card, tmp, train_label):
     say(tag, "one fixed batch of %d drawn %dx%d pages (the train chain's augmentation drawn "
         "once), bf16, amsgrad at LR %g: after %d steps the binary dice loss %.4f (under %g) and "
         "%d boxes on its %d crops (at least %d; within %d steps), its terms %s; %.1f s (%.2f "
-        "steps/s with the reads); loss, dice loss and boxes every %d steps: %s on %s"
+        "steps/s with the reads%s); loss, dice loss and boxes every %d steps: %s on %s"
         % (DBPP_OVERFIT_N, TRAIN_SIZE, TRAIN_SIZE, base, done, dice, DBPP_OVERFIT_DICE, boxes,
            len(pages), DBPP_OVERFIT_BOXES, DBPP_OVERFIT_CAP,
-           ", ".join("%s %.4f" % kv for kv in losses.items()), secs, done / secs,
+           ", ".join("%s %.4f" % kv for kv in losses.items()), secs, done / secs, note,
            DBPP_OVERFIT_EVERY,
            ", ".join("%d: %.3f %.3f %d" % c for c in curve[:: max(1, len(curve) // 12)]), card))
     check(dice < DBPP_OVERFIT_DICE and boxes >= DBPP_OVERFIT_BOXES, "%s: after %d steps the "
@@ -3967,9 +4444,7 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
     import numpy as np
     import torch
 
-    from pytorchocr_tpu_torch.tools import eval as eval_cli
     from pytorchocr_tpu_torch.tools import program
-    from pytorchocr_tpu_torch.tools import train as train_cli
     from pytorchocr_tpu_torch.tools.train import build_train_model
     from pytorchocr_tpu_torch.utils.logging import get_logger
     from pytorchocr_tpu_torch.utils.save_load import model_state
@@ -3988,13 +4463,11 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
     argv = train_argv(out, train_label, eval_label, epochs, DBPP_TRAIN_CFG)
     config = program.preprocess(is_train=True, argv=argv)[0]
     batches = first_batches(config, 2, 2)
-    compare_f32_step(config, dev, batches[0], card, tag="dbpp-f32", schedule=schedule,
-                     loss_pieces=True)
+    dbpp_check = compare_f32_step(config, dev, batches[0], card, tag="dbpp-f32",
+                                  schedule=schedule, loss_pieces=True)
     checkpoint_round_trip(config, dev, batches, tmp, tag="dbpp-ckpt", schedule=schedule)
     with recorded_kernels() as rec:
-        t0 = time.perf_counter()
-        report = train_cli.run(argv)
-        run_s = time.perf_counter() - t0
+        report, run_s = train_run(argv)
     k1 = rec.k1_launches
     shapes = rec.hold("dbpp-train-eval")
     losses = report["losses"]
@@ -4023,13 +4496,14 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
         "its inputs (%s); hmean %.4f, precision %.4f, recall %.4f, %.2f pages/s on %s"
         % (EVAL_PAGES, k1, rec.alternations, shapes, best["hmean"], best["precision"],
            best["recall"], best["fps"], card))
-    metric = eval_cli.run(argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")])
+    metric = eval_run(argv + ["Global.checkpoints=%s" % os.path.join(out, "latest")])
     keys = ("precision", "recall", "hmean")
     check(all(metric[k] == best[k] for k in keys), "dbpp-eval: tools.eval.run on latest gives "
           "%s, the train run's evaluate %s" % ([metric[k] for k in keys], [best[k] for k in keys]))
     say("dbpp-eval", "tools.eval.run on latest: hmean %.4f, equal to the train run's; %.2f "
         "pages/s on %s" % (metric["hmean"], metric["fps"], card))
     dbpp_overfit(config, os.path.join(out, "config.yml"), dev, card, tmp, train_label)
+    later(dbpp_check)
 
     # STAR-Net
     line_train, line_eval, small = lines
@@ -4041,20 +4515,15 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
     config = lines_config(argv)
     batches = first_batches(config, 2, F32_BS, small)
 
-    def off_rare(model):  # the TPS off RARE's init, so its every layer has a gradient
-        perturbed_tps_(model, torch.Generator().manual_seed(SEED + 71))
-
-    compare_f32_step(config, dev, batches[0], card, what="bs %d, 1x32x320, the freeze off and "
-                     "the TPS off RARE's init (fc2 weight ~ N(0, 0.02), fiducials x1.1): its "
-                     "gradients held too" % F32_BS, tag="starnet-f32", schedule=schedule,
-                     zero_grad=bn_fed_biases, focus="transform.", card_floors=True,
-                     prepare=off_rare)
+    starnet_check = compare_f32_step(
+        config, dev, batches[0], card, what="bs %d, 1x32x320, the freeze off and the TPS off "
+        "RARE's init (fc2 weight ~ N(0, 0.02), fiducials x1.1): its gradients held too" % F32_BS,
+        tag="starnet-f32", schedule=schedule, zero_grad=bn_fed_biases, focus="transform.",
+        card_floors=True, prepare=off_rare)
     starnet_freeze(config, dev, batches, schedule)
     checkpoint_round_trip(config, dev, batches, tmp, tag="starnet-ckpt", schedule=schedule)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    report = train_cli.run(argv)
-    run_s = time.perf_counter() - t0
+    report, run_s = train_run(argv)
     losses = report["losses"]
     check(report["steps"] == STARNET_STEPS and len(losses) == STARNET_STEPS,
           "starnet-train: %d steps, not %d" % (report["steps"], STARNET_STEPS))
@@ -4076,7 +4545,7 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
            ", ".join("%s %.4f" % (k, v) for k, v in best.items() if k != "best_model_epoch")))
     report_lines_train("starnet-train", report, run_s, card)
     ckpt = os.path.join(out, "best_accuracy")
-    metric = eval_cli.run(argv + ["Global.checkpoints=%s" % ckpt])
+    metric = eval_run(argv + ["Global.checkpoints=%s" % ckpt])
     keys = ("acc", "norm_edit_dis")
     check(all(metric[k] == best[k] for k in keys), "starnet-eval: tools.eval.run gives %s, the "
           "train run logged %s" % ([metric[k] for k in keys], [best[k] for k in keys]))
@@ -4085,6 +4554,7 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
                                                  metric["fps"], card))
     served_equals_eval("starnet-serve", "rec", os.path.join(out, "config.yml"), ckpt, line_eval,
                        dev, card, config["Eval"]["loader"]["batch_size_per_card"], torch.float32)
+    later(starnet_check)
     say("zoo-train", "phase 17 took %.1f s" % (time.perf_counter() - t_phase))
     return k1
 
@@ -4320,6 +4790,8 @@ def table_serve(dev, card, tmp, eval_label):
     metric_class = build_metric(config["Metric"])
     eval_step(torch.from_numpy(batch[0]).to(dev))  # warm
     torch.cuda.synchronize()
+    timed = paused()  # the bf16 runs' times, through the profiler's
+    timed.__enter__()
     t0 = time.perf_counter()
     metric = program.evaluate(eval_step, loader, post, metric_class, "table", dev)
     wall = time.perf_counter() - t0
@@ -4360,6 +4832,7 @@ def table_serve(dev, card, tmp, eval_label):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     # the head's launches: the backbone's and the neck's taken out
     launches = sum(e.count for e in events) - sum(e.count for e in card_events(encoder))
+    timed.__exit__()
     busy = "card busy %.1f ms of a %.1f ms call (%.1f%%, torch.profiler)" % (
         busy_ms, 1e3 * call_s, 100.0 * busy_ms / (1e3 * call_s))
     say("table-serve", "bf16 (the config's use_amp) through program.evaluate (the port's eval "
@@ -4390,7 +4863,6 @@ def table_overfit(dev, card, tmp):
 
     from pytorchocr_tpu_torch.metrics import build_metric
     from pytorchocr_tpu_torch.postprocess import build_post_process
-    from pytorchocr_tpu_torch.tools import eval as eval_cli
     from pytorchocr_tpu_torch.tools import program
     from pytorchocr_tpu_torch.tools.train import set_head_channels
     from pytorchocr_tpu_torch.trainer import (batch_to_device, build_input_transform,
@@ -4431,6 +4903,7 @@ def table_overfit(dev, card, tmp):
     check(untrained[0] < TABLE_OVERFIT_HITS, "%s: the untrained model reads back %d of %d "
           "structures: the check cannot fail" % (tag, untrained[0], TABLE_OVERFIT_N))
     curve, done, hits = [], 0, untrained
+    note = beside_worker()
     t0 = time.perf_counter()
     while done < TABLE_OVERFIT_CAP and hits[0] < TABLE_OVERFIT_HITS:
         for _ in range(TABLE_OVERFIT_EVERY):
@@ -4444,11 +4917,11 @@ def table_overfit(dev, card, tmp):
         "and aux count as published: "
         "%d of %d structures read back exactly (eval-mode greedy decode, TableMetric's acc) "
         "after %d steps (threshold %d within %d; untrained: %d, token_acc %.4f), %.1f s (%.2f "
-        "steps/s with the reads); loss, structures and token_acc every %d steps: %s on %s"
+        "steps/s with the reads%s); loss, structures and token_acc every %d steps: %s on %s"
         % (TABLE_OVERFIT_N, TABLE_OVERFIT_LEN + 1, TABLE_OVERFIT_LR,
            cfg["Architecture"]["Head"]["scheduled_sampling_p"],
            hits[0], TABLE_OVERFIT_N, done, TABLE_OVERFIT_HITS, TABLE_OVERFIT_CAP, untrained[0],
-           untrained[1], secs, done / secs, TABLE_OVERFIT_EVERY,
+           untrained[1], secs, done / secs, note, TABLE_OVERFIT_EVERY,
            ", ".join("%d: %.3f %d %.3f" % c for c in curve[:: max(1, len(curve) // 12)]), card))
     check(hits[0] >= TABLE_OVERFIT_HITS, "%s: %d of %d structures read back after %d steps (at "
           "least %d within %d)" % (tag, hits[0], TABLE_OVERFIT_N, done, TABLE_OVERFIT_HITS,
@@ -4456,7 +4929,7 @@ def table_overfit(dev, card, tmp):
     out = os.path.join(tmp, tag + "_out")
     save_model(model, opt, {"start_epoch": 1, "global_step": done, "best_model": {}}, out,
                prefix="best_accuracy")
-    cli = eval_cli.run(["-c", cfg_path, "-o",
+    cli = eval_run(["-c", cfg_path, "-o",
                         "Global.checkpoints=%s" % os.path.join(out, "best_accuracy")])
     # token_acc is a mean over the tables, summed here in the train loader's order
     check(round(cli["acc"] * TABLE_OVERFIT_N) == hits[0] and abs(cli["token_acc"] - hits[1])
@@ -4477,9 +4950,7 @@ def phase_table(dev, card, tmp):
     import torch
 
     from pytorchocr_tpu_torch.postprocess import build_post_process
-    from pytorchocr_tpu_torch.tools import eval as eval_cli
     from pytorchocr_tpu_torch.tools import program
-    from pytorchocr_tpu_torch.tools import train as train_cli
     from pytorchocr_tpu_torch.tools.train import set_head_channels
     from pytorchocr_tpu_torch.utils.logging import get_logger
 
@@ -4518,18 +4989,17 @@ def phase_table(dev, card, tmp):
     with open(small, "w") as f:
         f.write("".join(open(train_label).readlines()[: 2 * 2]))
     batches = first_batches(config, 2, 2, small)
-    compare_f32_step(config, dev, batches[0], card, what="bs 2, 480x480, 161 decode steps, "
-                     "scheduled sampling 0.25 (the card's coins and fed-back tokens replayed)",
-                     tag="table-f32", schedule=schedule, zero_grad=bn_fed_biases,
-                     focus="head.decode.rnn.", card_floors=True, loss_pieces=True)
+    f32_check = compare_f32_step(
+        config, dev, batches[0], card, what="bs 2, 480x480, 161 decode steps, scheduled "
+        "sampling 0.25 (the card's coins and fed-back tokens replayed)", tag="table-f32",
+        schedule=schedule, zero_grad=bn_fed_biases, focus="head.decode.rnn.", card_floors=True,
+        loss_pieces=True)
     t = part("f32 step", t)
     checkpoint_round_trip(config, dev, batches, tmp, tag="table-ckpt", schedule=schedule)
     t = part("round trip", t)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    report = train_cli.run(argv)
-    run_s = time.perf_counter() - t0
+    report, run_s = train_run(argv)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = report["losses"]
     check(report["steps"] == TABLE_STEPS and len(losses) == TABLE_STEPS,
@@ -4551,7 +5021,7 @@ def phase_table(dev, card, tmp):
            peak))
     report_lines_train("table-train", report, run_s, card)
     ckpt = os.path.join(out, "best_accuracy")
-    metric = eval_cli.run(argv + ["Global.checkpoints=%s" % ckpt])
+    metric = eval_run(argv + ["Global.checkpoints=%s" % ckpt])
     keys = ("acc", "token_acc")
     check(all(metric[k] == best[k] for k in keys), "table-eval: tools.eval.run gives %s, the "
           "train run logged %s" % ([metric[k] for k in keys], [best[k] for k in keys]))
@@ -4563,8 +5033,315 @@ def phase_table(dev, card, tmp):
     # (c) the fixed-batch convergence check
     table_overfit(dev, card, tmp)
     part("convergence", t)
+    later(f32_check)
     say("table", "phase 18 took %.1f s: %s" % (time.perf_counter() - t_phase, ", ".join(
         "%s %.1f s" % kv for kv in parts.items())))
+
+
+CML_CFG = os.path.join(REPO, "configs", "det", "distillation", "det_cml_db_synth.yml")
+DISTILL_CFG = os.path.join(REPO, "configs", "det", "distillation", "det_distill_db_synth.yml")
+DML_CFG = os.path.join(REPO, "configs", "det", "distillation", "det_dml_db_synth.yml")
+REC_DML_CFG = os.path.join(REPO, "configs", "rec", "distillation", "rec_dml_ctc_synth.yml")
+DISTILL_BS = 8  # the det distillation configs' batch
+# phase 19's tools.train.run steps (epochs of 64 / 8 pages, or 2,560 / 128 lines); CML's
+# mean loss of the last 8 steps must fall under CML_FALL of the first 8's
+CML_STEPS, CML_FALL, DISTILL_STEPS, DML_STEPS, REC_DML_STEPS = 24, 0.8, 8, 8, 40
+# phase 19 (b)'s convergence check, written down in PERF.md before the run
+# that first checked it in this form: one fixed batch of DISTILL_OVERFIT_N of
+# phase 11's pages through det_distill_db_synth.yml's train chain (its
+# augmentation drawn once), bf16, its amsgrad at the constant LR
+# DISTILL_OVERFIT_LR, the teacher phase 11's checkpoint; read every
+# DISTILL_OVERFIT_EVERY steps at the scale it trains at: the student's eval
+# boxes on the batch's crops must match at least DISTILL_OVERFIT_SHARE of the
+# teacher's (IoU >= 0.5 of their rectangles, one to one) within
+# DISTILL_OVERFIT_CAP steps; the untrained student must not. (Read at the
+# eval chain's 736, a student of 4 or 2 crops matched at most 0.585 within
+# 1,200 steps: PERF.md.)
+DISTILL_OVERFIT_N, DISTILL_OVERFIT_LR, DISTILL_OVERFIT_SHARE = 2, 2e-3, 0.8
+DISTILL_OVERFIT_CAP, DISTILL_OVERFIT_EVERY, DISTILL_OVERFIT_MIN_BOXES = 1000, 50, 20
+
+
+class SubmodelPretrained:
+    """A distillation model's `pretrained` sub-models loaded as tools.train
+    loads them (load_submodel_pretrained), as the float32-step check's
+    `prepare` (the teacher's weights in every step alike)."""
+
+    def __init__(self, arch):
+        self.arch = arch
+
+    def __call__(self, model):
+        from pytorchocr_tpu_torch.utils.save_load import load_submodel_pretrained
+
+        load_submodel_pretrained(model, self.arch)
+
+
+def distill_train(tag, cfg_path, dev, card, tmp, train_label, eval_label, steps, teacher=None,
+                  fall=None):
+    """A det distillation config as published (bs 8 at 640x640, bf16, 8
+    loader threads; the teacher, if any, from phase 11's checkpoint
+    directory `teacher`) through tools.train.run for `steps` steps on phase
+    11's pages, every K1 launch of its evaluate (DistillationDBPostProcess:
+    one DBPostProcess a student) held to the plain version, then
+    tools.eval.run on best_accuracy equal to it. Returns the K1 launches,
+    the output directory and the argv."""
+    import numpy as np
+    import torch
+
+    name = os.path.relpath(cfg_path, REPO)
+    epochs = steps // (TRAIN_PAGES // DISTILL_BS)
+    out = os.path.join(tmp, tag + "_out")
+    argv = train_argv(out, train_label, eval_label, epochs, cfg_path)
+    if teacher:
+        argv.append("Architecture.Models.Teacher.pretrained=%s" % teacher)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_kernels() as rec:
+        report, run_s = train_run(argv)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    k1 = rec.k1_launches
+    shapes = rec.hold(tag + "-train-eval")
+    losses = report["losses"]
+    check(report["steps"] == steps and len(losses) == steps,
+          "%s-train: %d steps, not %d" % (tag, report["steps"], steps))
+    check(bool(np.isfinite(losses).all()), "%s-train: a loss is not finite" % tag)
+    first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    if fall is not None:
+        check(last < fall * first, "%s-train: the mean loss of the last 8 steps %.4f is not under "
+              "%g of the first 8's %.4f" % (tag, last, fall, first))
+    check(k1 > 0, "%s-train: the evaluate after training launched no run-max kernel" % tag)
+    best, wall = report["best"], report["wall_s"]
+    students = [k[: -len("_hmean")] for k in best if k.endswith("_hmean")]
+    check(best["hmean"] == max(best[s + "_hmean"] for s in students), "%s-train: the metric's "
+          "hmean %.4f is not its best student's" % (tag, best["hmean"]))
+    say(tag + "-train", "%s as published (bs %d at %dx%d, bf16 autocast, amsgrad + WarmupPolyLR, "
+        "8 loader threads%s) through tools.train.run: %d steps (%d epochs of %d drawn pages); mean "
+        "loss of the first 8 steps %.4f, of the last 8 %.4f (%.3f of it%s); loss every 4 "
+        "steps: %s; the evaluate's %s"
+        % (name, DISTILL_BS, TRAIN_SIZE, TRAIN_SIZE,
+           ", the teacher phase 11's checkpoint" if teacher else "", report["steps"], epochs,
+           TRAIN_PAGES, first, last, last / first,
+           "; the check: under %g" % fall if fall is not None else "",
+           ", ".join("%.3f" % v for v in losses[::4]),
+           ", ".join("%s %.4f" % (k, v) for k, v in best.items()
+                     if k.endswith(("hmean", "precision", "recall")))))
+    say(tag + "-train", "%.3f steps/s, %.1f samples/s over the train iterations (%.1f s of %.1f s "
+        "in the call); loader wait %.1f%%, the batches' host-to-device copies (with the wait for "
+        "the step before them) %.1f%%; torch.cuda.max_memory_allocated %.2f GB; %s"
+        % (report["steps"] / wall, report["samples"] / wall, wall, run_s,
+           100.0 * report["reader_s"] / wall, 100.0 * report["copy_s"] / wall, peak, card))
+    say(tag + "-train-eval", "bucketed evaluate after the last epoch on %d pages through "
+        "DistillationDBPostProcess (%s): runmax.launches %d (alternations %d), each launch's "
+        "output and changed flag == the plain version on its inputs (%s); %.2f pages/s on %s"
+        % (EVAL_PAGES, ", ".join(students), k1, rec.alternations, shapes, best["fps"], card))
+    metric = eval_run(argv + ["Global.checkpoints=%s" % os.path.join(out, "best_accuracy")])
+    keys = ["hmean"] + [s + "_" + m for s in students for m in ("hmean", "precision", "recall")]
+    check(all(metric[k] == best[k] for k in keys), "%s-eval: tools.eval.run on best_accuracy "
+          "gives %s, the train run's evaluate %s" % (tag, [metric[k] for k in keys],
+                                                     [best[k] for k in keys]))
+    say(tag + "-eval", "tools.eval.run on best_accuracy: %s, equal to the train run's; %.2f "
+        "pages/s on %s" % (", ".join("%s %.4f" % (k, metric[k]) for k in keys), metric["fps"],
+                           card))
+    return k1, out, argv
+
+
+def distill_overfit(config, dev, card, tmp, train_label):
+    """Phase 19 (b)'s convergence check (the constants above): the distill
+    student, trained on one fixed batch with the teacher's maps and the
+    ground truth (the config's losses), reproduces the teacher's eval boxes
+    on the batch's crops."""
+    import copy
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.data import build_dataloader
+    from pytorchocr_tpu_torch.postprocess import build_post_process
+    from pytorchocr_tpu_torch.trainer import batch_to_device, build_input_transform, make_eval_step
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+    from pytorchocr_tpu_torch.utils.save_load import load_submodel_pretrained
+
+    tag = "distill-overfit"
+    label = os.path.join(tmp, tag + "_label.txt")
+    with open(train_label) as f, open(label, "w") as g:
+        g.writelines(f.readlines()[:DISTILL_OVERFIT_N])
+    cfg = copy.deepcopy(config)
+    cfg["Optimizer"].pop("lr_decay")
+    cfg["Optimizer"]["base_lr"] = DISTILL_OVERFIT_LR
+    raw = first_batches(cfg, 1, DISTILL_OVERFIT_N, label)[0]
+    batch = batch_to_device(raw, dev)
+    crops = os.path.join(tmp, tag + "_crops")
+    os.makedirs(crops)
+    lines = []
+    for i, image in enumerate(raw[0]):  # RGB, as the chain decodes it
+        path = os.path.join(crops, "crop_%d.png" % i)
+        cv2.imwrite(path, np.ascontiguousarray(image[..., ::-1]))
+        lines.append("%s\t%s\n" % (path, json.dumps([{"transcription": "x", "points": [
+            [0, 0], [8, 0], [8, 8], [0, 8]]}])))  # no metric here: a placeholder box
+    with open(os.path.join(crops, "label.txt"), "w") as f:
+        f.writelines(lines)
+    cfg["Eval"]["dataset"]["label_file_list"] = [os.path.join(crops, "label.txt")]
+    for op in cfg["Eval"]["dataset"]["transforms"]:  # read at the scale the batch trains at
+        if "DetResizeForTest" in op:
+            op["DetResizeForTest"] = {"limit_side_len": TRAIN_SIZE, "limit_type": "min"}
+    model, opt, step = train_parts(cfg, dev, amp=True, schedule=(DISTILL_OVERFIT_CAP, 1))
+    load_submodel_pretrained(model, cfg["Architecture"])
+    check(abs(opt.current_lr() - DISTILL_OVERFIT_LR) <= 1e-6 * DISTILL_OVERFIT_LR,
+          "%s: LR %g, not the constant %g" % (tag, opt.current_lr(), DISTILL_OVERFIT_LR))
+    eval_step = make_eval_step(model, build_input_transform(
+        cfg["Global"]["_device_normalize_spec"].get("Eval")), amp=True)
+    post = build_post_process(cfg["PostProcess"], cfg["Global"]).post_process
+    pages = list(build_dataloader(cfg, "Eval", get_logger(name="root"))[0])
+
+    def boxes(preds, shape):
+        points = post({"maps": preds["maps"].float()}, shape)[0]["points"]
+        return [(np.asarray(b).reshape(-1).tolist(), "", 0.0) for b in points]
+
+    def reading():
+        student, teacher = [], []
+        for p in pages:
+            preds = eval_step(torch.from_numpy(p[0]).to(dev))
+            student.append(boxes(preds["Student"], p[1]))
+            teacher.append(boxes(preds["Teacher"], p[1]))
+        n = sum(len(t) for t in teacher)
+        return match_iou(student, teacher)[0] / max(n, 1), n, sum(len(s) for s in student)
+
+    untrained = reading()
+    check(untrained[1] >= DISTILL_OVERFIT_MIN_BOXES, "%s: the teacher finds %d boxes on the %d "
+          "crops (at least %d)" % (tag, untrained[1], len(pages), DISTILL_OVERFIT_MIN_BOXES))
+    check(untrained[0] < DISTILL_OVERFIT_SHARE, "%s: the untrained student matches %.3f of the "
+          "teacher's boxes: the check cannot fail" % (tag, untrained[0]))
+    curve, done, got = [], 0, untrained
+    note = beside_worker()
+    t0 = time.perf_counter()
+    while done < DISTILL_OVERFIT_CAP and got[0] < DISTILL_OVERFIT_SHARE:
+        for _ in range(DISTILL_OVERFIT_EVERY):
+            losses = step(batch)
+        done += DISTILL_OVERFIT_EVERY
+        got = reading()
+        curve.append((done, float(losses["loss"]), got[0], got[2]))
+    secs = time.perf_counter() - t0
+    say(tag, "one fixed batch of %d drawn %dx%d pages (the train chain's augmentation drawn "
+        "once), bf16, amsgrad at LR %g, the teacher phase 11's checkpoint: the student matches "
+        "%.3f of the teacher's %d eval boxes on its crops (IoU >= 0.5; at least %g within %d "
+        "steps) after %d steps (untrained: %.3f, %d boxes), %.1f s (%.2f steps/s with the "
+        "reads%s); loss, share and the student's boxes every %d steps: %s on %s"
+        % (DISTILL_OVERFIT_N, TRAIN_SIZE, TRAIN_SIZE, DISTILL_OVERFIT_LR, got[0], got[1],
+           DISTILL_OVERFIT_SHARE, DISTILL_OVERFIT_CAP, done, untrained[0], untrained[2], secs,
+           done / secs, note, DISTILL_OVERFIT_EVERY,
+           ", ".join("%d: %.3f %.3f %d" % c for c in curve[:: max(1, len(curve) // 12)]), card))
+    check(got[0] >= DISTILL_OVERFIT_SHARE, "%s: the student matches %.3f of the teacher's boxes "
+          "after %d steps (at least %g within %d)" % (tag, got[0], done, DISTILL_OVERFIT_SHARE,
+                                                      DISTILL_OVERFIT_CAP))
+
+
+def phase_distill(dev, card, tmp, train_label, eval_label, lines):
+    """Phase 19: distillation (module docstring). Returns K1's launches by
+    path."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.utils.logging import get_logger
+    from pytorchocr_tpu_torch.utils.save_load import model_state
+
+    t_phase = time.perf_counter()
+    logger = get_logger(name="root")
+    for h in logger.handlers:
+        h.setLevel(logging.WARNING)
+    teacher = os.path.join(tmp, "train_out", "best_accuracy")  # phase 11's DB-ResNet18
+    check(os.path.isdir(teacher), "distill: phase 11's checkpoint %s is missing" % teacher)
+    parts, k1 = {}, {}
+
+    def part(name, t):
+        parts[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    # (a) CML as published: the float32 step, the round trip, training, the evaluate
+    t = time.perf_counter()
+    per_epoch = TRAIN_PAGES // DISTILL_BS
+    schedule = (CML_STEPS // per_epoch, per_epoch)
+    argv = train_argv(os.path.join(tmp, "cml_f32"), train_label, eval_label, schedule[0], CML_CFG)
+    argv.append("Architecture.Models.Teacher.pretrained=%s" % teacher)
+    config = program.preprocess(is_train=True, argv=argv)[0]
+    batches = first_batches(config, 2, 2)
+    cml_check = compare_f32_step(
+        config, dev, batches[0], card, tag="cml-f32", schedule=schedule, loss_pieces=True,
+        prepare=SubmodelPretrained(config["Architecture"]), zero_grad=db_student_zero_grad,
+        card_floors=True,  # MobileNetV3 students: phase 13's floor form (PERF.md)
+        what="bs 2, %dx%d, the teacher phase 11's checkpoint (its forward's pieces replayed "
+        "too), the two students' gradients held" % (TRAIN_SIZE, TRAIN_SIZE))
+    checkpoint_round_trip(config, dev, batches, tmp, tag="cml-ckpt", schedule=schedule)
+    t = part("CML f32 step and round trip", t)
+    k1["CML-train-eval"], out, _ = distill_train("cml", CML_CFG, dev, card, tmp, train_label,
+                                                 eval_label, CML_STEPS, teacher, CML_FALL)
+    want = model_state(teacher, torch.device("cpu"))
+    latest = model_state(os.path.join(out, "latest"), torch.device("cpu"))
+    held = [k for k in want if not k.startswith("head.thresh.")]
+    check(all(torch.equal(latest["models_0." + k], want[k]) for k in held),
+          "cml-train: the frozen teacher moved")
+    say("cml-train", "the teacher's %d parameters and BN statistics in the latest checkpoint "
+        "after %d steps equal phase 11's checkpoint bit for bit (its %d train-only threshold "
+        "tower tensors left out: a frozen DB model is built without them)"
+        % (len(held), CML_STEPS, len(want) - len(held)))
+    t = part("CML training and eval CLI", t)
+
+    # (b) distill and DML, short runs, and the distill student's convergence check
+    k1["distill-train-eval"], _, argv = distill_train("distill", DISTILL_CFG, dev, card, tmp,
+                                                      train_label, eval_label, DISTILL_STEPS,
+                                                      teacher)
+    k1["DML-train-eval"] = distill_train("dml", DML_CFG, dev, card, tmp, train_label, eval_label,
+                                         DML_STEPS)[0]
+    t = part("distill and DML training", t)
+    distill_overfit(program.preprocess(is_train=True, argv=argv)[0], dev, card, tmp,
+                    train_label)
+    t = part("convergence", t)
+
+    # (c) rec DML as published
+    line_train, line_eval, small = lines
+    per_epoch = LINES_TRAIN // LINES_BS
+    schedule = (REC_DML_STEPS // per_epoch, per_epoch)
+    out = os.path.join(tmp, "recdml_out")
+    argv = lines_argv(REC_DML_CFG, out, line_train, line_eval, schedule[0])
+    config = lines_config(argv)
+    batches = first_batches(config, 2, F32_BS, small)
+    rec_check = compare_f32_step(config, dev, batches[0], card, what="bs %d, 1x32x320, both "
+                                 "students" % F32_BS, tag="recdml-f32", schedule=schedule,
+                                 zero_grad=bn_fed_biases, focus="rnn.", card_floors=True)
+    checkpoint_round_trip(config, dev, batches, tmp, tag="recdml-ckpt", schedule=schedule)
+    with recorded_kernels() as rec:
+        report, run_s = train_run(argv)
+    check(rec.k1_launches == rec.k2_launches == 0, "recdml-train: the rec path launched a kernel")
+    losses = report["losses"]
+    check(report["steps"] == REC_DML_STEPS and len(losses) == REC_DML_STEPS,
+          "recdml-train: %d steps, not %d" % (report["steps"], REC_DML_STEPS))
+    check(bool(np.isfinite(losses).all()), "recdml-train: a loss is not finite")
+    best = report["best"]
+    check(best["acc"] == max(best["Student_acc"], best["Student2_acc"]), "recdml-train: the "
+          "metric's acc %.4f is not its best student's" % best["acc"])
+    say("recdml-train", "rec_dml_ctc_synth.yml as published (two CRNNs, VGG v1 x0.5, BiLSTM 96, "
+        "CTC + DML on the softmax, use_log; bs %d at 1x32x320, bf16 autocast, amsgrad + "
+        "WarmupPolyLR, RecAug, 8 loader threads, cal_metric_during_train) through "
+        "tools.train.run: %d steps on phase 12's %d lines; mean loss of the first 10 steps "
+        "%.4f, of the last 10 %.4f; no kernel launched; the eval: %s"
+        % (LINES_BS, report["steps"], LINES_TRAIN, float(np.mean(losses[:10])),
+           float(np.mean(losses[-10:])),
+           ", ".join("%s %.4f" % (k, v) for k, v in best.items() if k != "best_model_epoch")))
+    report_lines_train("recdml-train", report, run_s, card)
+    metric = eval_run(argv + ["Global.checkpoints=%s" % os.path.join(out, "best_accuracy")])
+    keys = ("acc", "norm_edit_dis", "Student_acc", "Student2_acc")
+    check(all(metric[k] == best[k] for k in keys), "recdml-eval: tools.eval.run gives %s, the "
+          "train run logged %s" % ([metric[k] for k in keys], [best[k] for k in keys]))
+    say("recdml-eval", "tools.eval.run on best_accuracy: %s, equal to the train run's "
+        "(DistillationMetric: the better student's); %.1f lines/s on %s"
+        % (", ".join("%s %.4f" % (k, metric[k]) for k in keys), metric["fps"], card))
+    part("rec DML", t)
+    later(cml_check)
+    later(rec_check)
+    say("distill", "phase 19 took %.1f s: %s" % (time.perf_counter() - t_phase, ", ".join(
+        "%s %.1f s" % kv for kv in parts.items())))
+    return k1
 
 
 def forbidden_modules():
@@ -4578,7 +5355,47 @@ STREAMED = ("back-to-back launches in one CUDA graph over rotating copies of the
             "outputs that hold 4x the L2, CUDA events over the graph / launches (stream_ms)")
 
 
+# each phase's time budget (s), printed beside its time: a phase past it says
+# so on its line and does not fail the run (the host's speed moves every
+# phase; PERF.md §6); they sum to at most 900 s
+PHASE_BUDGET_S = {"1-2": 40, "3": 10, "4": 2, "5": 20, "6": 35, "7": 40, "8": 35, "9": 5,
+                  "9 (requant)": 3, "10": 20, "11": 60, "12": 75, "13": 60, "14": 70, "15": 70,
+                  "16": 35, "17": 75, "18": 85, "19": 140, "checks": 10}
+ORDER = tuple(p for p in PHASE_BUDGET_S if p != "checks")
+# what a phase reads from earlier ones (--only adds them)
+NEEDS = {"6": ("5",), "8": ("5",), "9": ("8",), "9 (requant)": ("8",), "10": ("5",),
+         "14": ("11",), "15": ("11",), "16": ("5",), "17": ("11", "12"), "19": ("11", "12")}
+# the CPU reference jobs a phase reads (submit_references)
+REFS = {"5": ("slice",), "6": ("slice", "pse"), "7": ("pan",), "8": ("slice", "int8"),
+        "10": ("slice", "cls"), "12": ("lines rec",), "13": ("lines cls",),
+        "16": ("slice", "dbpp", "starnet") + tuple(tag for tag, _, _ in ZOO_DET)}
+
+
+def chosen_phases(arg):
+    """The phases of `--only` ("18", "1-4,19", ...): each listed one, "9"
+    with its requantize part, and what they read from earlier phases."""
+    numbers = set()
+    for part in arg.split(","):
+        lo, _, hi = part.strip().partition("-")
+        if not lo.isdigit() or (hi and not hi.isdigit()):
+            raise SystemExit("chip_smoke FAILED: --only takes phase numbers and ranges, e.g. "
+                             "1-4,19")
+        numbers |= set(range(int(lo), int(hi or lo) + 1))
+    chosen = {p for p in ORDER if any(int(n) in numbers for n in p.split(" ")[0].split("-"))}
+    while True:
+        more = {n for p in chosen for n in NEEDS.get(p, ())} - chosen
+        if not more:
+            return [p for p in ORDER if p in chosen]
+        chosen |= more
+
+
 def main():
+    if "--cpu-worker" in sys.argv:  # as the module chip_smoke: its results name it so
+        sys.path.insert(0, REPO)
+        import chip_smoke
+
+        chip_smoke.cpu_worker_main(sys.argv[sys.argv.index("--cpu-worker") + 1])
+        return
     try:
         import torch
     except ImportError:
@@ -4591,69 +5408,108 @@ def main():
     except ImportError as e:
         raise SystemExit("chip_smoke FAILED: run it from a checkout of the repo (%s)" % e)
 
-    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "18"):
-        raise SystemExit("chip_smoke FAILED: --only takes 18")
+    only = chosen_phases(sys.argv[sys.argv.index("--only") + 1]) if "--only" in sys.argv else None
     dev = torch.device("cuda:0")
     card = card_line()
     say("device", "torch.cuda: %s; nvidia-smi: %s; torch %s, CUDA %s"
         % (torch.cuda.get_device_name(0), card, torch.__version__, torch.version.cuda))
-    t0 = time.perf_counter()
-    times = {}
-
-    def phase(name, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        times[name] = time.perf_counter() - t
-        say("time", "phase %s took %.1f s (all phases so far %.1f s)"
-            % (name, times[name], time.perf_counter() - t0))
-        return out
-
-    if only:
-        with tempfile.TemporaryDirectory() as tmp:
-            phase(18, phase_table, dev, card, tmp)
-        check(not forbidden_modules(), "the port imported %s" % forbidden_modules())
-        say("done", "phase 18 only: no result printed")
-        return
-
-    int32_rate = int32_ops_per_s()
-    k1 = phase("1-2", phase_kernels, dev, card, int32_rate)
-    k2 = phase(3, phase_propagate, dev, card, int32_rate)
-    phase(4, phase_front_half, dev)
+    global WORKER
     with tempfile.TemporaryDirectory() as tmp:
-        pages = make_pages(tmp)
-        db_k1, db = phase(5, phase_slice, dev, card, tmp, pages)
-        pse_k1, pse_k2 = phase(6, phase_pse, dev, card, tmp, pages, db["rec_pt"])
-        pan_k1 = phase(7, phase_pan, dev, card, tmp, pages)
-        (q8_conv, q8_k1, q8_rq), ocr_q8 = phase(8, phase_int8_slice, dev, card, pages, db)
-        q8 = phase(9, phase_int8_conv, dev, card, ocr_q8, pages)
-        rq = phase("9 (requant)", phase_requant, dev, card, ocr_q8, pages)
-        del ocr_q8
-        phase(10, phase_cls, dev, card, tmp, pages, db)
-        train_k1, train_label, eval_label = phase(11, phase_train, dev, card, tmp)
-        lines = phase(12, phase_lines_train, dev, card, tmp, "rec")
-        phase(13, phase_lines_train, dev, card, tmp, "cls")
-        pse_train = phase(14, phase_det_train, dev, card, tmp, "pse", train_label, eval_label)
-        pan_train = phase(15, phase_det_train, dev, card, tmp, "pan", train_label, eval_label)
-        early = time.perf_counter() - t0
-        zoo_k1 = phase(16, phase_zoo_serve, dev, card, tmp, pages, db)
-        dbpp_train_k1 = phase(17, phase_zoo_train, dev, card, tmp, train_label, eval_label, lines)
-        late = time.perf_counter() - t0
-        phase(18, phase_table, dev, card, tmp)
+        WORKER = CpuWorker(os.path.join(tmp, "cpu_worker"))
+        try:
+            out = run_phases(dev, card, tmp, only or ORDER)
+        finally:
+            WORKER.close()
+            say("cpu-worker", "the CPU reference process: stopped %.1f s for the timed sections, "
+                "waited for %.1f s in all" % (WORKER.stopped_s, WORKER.waited_s))
+            WORKER = None
     bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
+    if only:
+        say("done", "phases %s only: no result printed" % ", ".join(only))
+        return
+    report_kernels(card, **out)
+
+
+def run_phases(dev, card, tmp, phases):
+    """Run `phases` (names of ORDER), each timed beside its budget, the CPU
+    reference jobs they read submitted first: 1-4, the trainings (11-15,
+    17-19), then the serving phases (5-10, 16), whose CPU references the
+    reference process makes while the trainings' card-bound loops leave it
+    the host. Returns what the kernels line reads."""
+    t0 = time.perf_counter()
+    pages = make_pages(tmp)
+    refs = submit_references(tmp, pages, {r for p in phases for r in REFS.get(p, ())})
+    got = {}
+
+    def phase(name, fn, *args):
+        if name not in phases:
+            return None
+        t = time.perf_counter()
+        got[name] = fn(*args)
+        took, budget = time.perf_counter() - t, PHASE_BUDGET_S[name]
+        if OVERLAPPED:
+            say("cpu-worker", "phase %s's timed sections %s ran beside the niced CPU reference "
+                "process (its times carry that)" % (name, ", ".join(sorted(OVERLAPPED))))
+            OVERLAPPED.clear()
+        say("time", "phase %s took %.1f s, budget %d s%s (all phases so far %.1f s)"
+            % (name, took, budget, "" if took <= budget else ": PAST ITS BUDGET (a slow host "
+               "is no fault of the port; not a failure)", time.perf_counter() - t0))
+        return got[name]
+
+    int32_rate = int32_ops_per_s()
+    with paused():  # their plain versions run on the CPU: the process would slow them
+        phase("1-2", phase_kernels, dev, card, int32_rate)
+        phase("3", phase_propagate, dev, card, int32_rate)
+        phase("4", phase_front_half, dev)
+    # the trainings first: their card-bound loops leave the host's cores to the
+    # CPU reference process, which meanwhile makes the serving phases' references
+    labels = (phase("11", phase_train, dev, card, tmp) or (0, None, None))[1:]
+    lines = phase("12", phase_lines_train, dev, card, tmp, "rec", refs.get("lines rec"))
+    phase("13", phase_lines_train, dev, card, tmp, "cls", refs.get("lines cls"))
+    phase("14", phase_det_train, dev, card, tmp, "pse", *labels)
+    phase("15", phase_det_train, dev, card, tmp, "pan", *labels)
+    phase("17", phase_zoo_train, dev, card, tmp, *labels, lines)
+    phase("18", phase_table, dev, card, tmp)
+    phase("19", phase_distill, dev, card, tmp, *labels, lines)
+    db = (phase("5", phase_slice, dev, card, tmp, pages, refs.get("slice")) or (0, None))[1]
+    phase("6", phase_pse, dev, card, tmp, pages, db and db["rec_pt"], refs.get("pse"))
+    phase("7", phase_pan, dev, card, tmp, pages, refs.get("pan"))
+    q8 = phase("8", phase_int8_slice, dev, card, pages, db, refs.get("int8"))
+    got["8 launches"], ocr_q8 = q8 or (None, None)
+    got.pop("8", None)  # keeps the int8 OCRer only as long as phase 9 needs it
+    phase("9", phase_int8_conv, dev, card, ocr_q8, pages)
+    phase("9 (requant)", phase_requant, dev, card, ocr_q8, pages)
+    del q8, ocr_q8
+    phase("10", phase_cls, dev, card, tmp, pages, db, refs.get("cls"))
+    phase("16", phase_zoo_serve, dev, card, tmp, pages, db, refs)
+    phases = list(phases) + ["checks"]
+    phase("checks", run_deferred)  # the float32-step checks held back (later)
     total = time.perf_counter() - t0
-    say("time", "phases 1-15 %.1f s, phases 16-17 %.1f s, phase 18 %.1f s, all %.1f s"
-        % (early, late - early, total - late, total))
-    k1_paths = {"DB": db_k1, "PSE": pse_k1, "PAN": pan_k1, "int8 DB": q8_k1,
-                "train-eval": train_k1, "PSE-train-eval": pse_train[0],
-                "PAN-train-eval": pan_train[0], **zoo_k1, "DB++-train-eval": dbpp_train_k1}
-    k2_paths = {"PSE": pse_k2, "PSE-train-eval": pse_train[1]}
+    say("time", "all phases %.1f s against their budgets' %d s" % (
+        total, sum(PHASE_BUDGET_S[p] for p in phases)))
+    if set(phases) != set(ORDER) | {"checks"}:
+        return None
+    k1_paths = {"DB": got["5"][0], "PSE": got["6"][0], "PAN": got["7"],
+                "train-eval": got["11"][0], "PSE-train-eval": got["14"][0],
+                "PAN-train-eval": got["15"][0], **got["16"], "DB++-train-eval": got["17"],
+                **got["19"]}
+    k2_paths = {"PSE": got["6"][1], "PSE-train-eval": got["14"][1]}
+    return dict(k1_paths=k1_paths, k2_paths=k2_paths, k1=got["1-2"], k2=got["3"], q8=got["9"],
+                rq=got["9 (requant)"], q8_launches=got["8 launches"], total=total)
+
+
+def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, total):
+    """The kernels line, the card line and the contract's last line."""
+    import torch
+
+    q8_conv, q8_k1, q8_rq = q8_launches
+    k1_paths = dict(k1_paths, **{"int8 DB": q8_k1})
     say("done", "main-path launches: K1 %d (%s), K2 %d (%s), int8_conv %d and requant %d "
         "(int8 DB); all phases %.1f s"
         % (sum(k1_paths.values()), ", ".join("%s %d" % kv for kv in k1_paths.items()),
            sum(k2_paths.values()), ", ".join("%s %d" % kv for kv in k2_paths.items()),
-           q8_conv, q8_rq, time.perf_counter() - t0))
+           q8_conv, q8_rq, total))
 
     kernels = []
     for name, source, replaces, launches, row, by_path in (

@@ -4,6 +4,7 @@ callables (preds, batch) -> {"loss": scalar tensor, ...}."""
 import copy
 
 from .cls_loss import ClsLoss
+from .combined_loss import CombinedLoss
 from .det_db_loss import DBLoss
 from .det_pan_loss import PANLoss
 from .det_pse_loss import PSELoss
@@ -13,8 +14,7 @@ from .table_att_loss import SLALoss
 __all__ = ["build_loss"]
 
 _SUPPORTED = {"DBLoss": DBLoss, "PSELoss": PSELoss, "PANLoss": PANLoss, "CTCLoss": CTCLoss,
-              "ClsLoss": ClsLoss, "SLALoss": SLALoss}
-_LATER = {"CombinedLoss": "A.12"}
+              "ClsLoss": ClsLoss, "SLALoss": SLALoss, "CombinedLoss": CombinedLoss}
 
 
 def build_loss(config):
@@ -22,7 +22,4 @@ def build_loss(config):
     name = config.pop("name")
     if name in _SUPPORTED:
         return _SUPPORTED[name](**config)
-    if name in _LATER:
-        raise NotImplementedError("loss %s is not ported yet (ROADMAP.md %s)"
-                                  % (name, _LATER[name]))
     raise NotImplementedError("loss %s: unknown; the port supports %s" % (name, list(_SUPPORTED)))

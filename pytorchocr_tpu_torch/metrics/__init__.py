@@ -4,14 +4,14 @@ import copy
 
 from .cls_metric import ClsMetric
 from .det_metric import DetMetric
+from .distillation_metric import DistillationMetric
 from .rec_metric import RecMetric
 from .table_metric import TableMetric
 
 __all__ = ["build_metric"]
 
 _SUPPORTED = {"DetMetric": DetMetric, "RecMetric": RecMetric, "ClsMetric": ClsMetric,
-              "TableMetric": TableMetric}
-_LATER = {"DistillationMetric": "A.12"}
+              "TableMetric": TableMetric, "DistillationMetric": DistillationMetric}
 
 
 def build_metric(config):
@@ -19,7 +19,4 @@ def build_metric(config):
     name = config.pop("name")
     if name in _SUPPORTED:
         return _SUPPORTED[name](**config)
-    if name in _LATER:
-        raise NotImplementedError("metric %s is not ported yet (ROADMAP.md %s)"
-                                  % (name, _LATER[name]))
     raise NotImplementedError("metric %s: unknown; the port supports %s" % (name, list(_SUPPORTED)))

@@ -4,8 +4,9 @@ pytorchocr_tpu/modeling/architectures/__init__.py."""
 import copy
 
 from .base_model import BaseModel, build_base_model
+from .distillation_model import DistillationModel, build_distillation_model
 
-__all__ = ["build_model", "BaseModel"]
+__all__ = ["build_model", "BaseModel", "DistillationModel"]
 
 
 def build_model(config):
@@ -14,5 +15,5 @@ def build_model(config):
         return build_base_model(config)
     name = config.pop("name")
     if name == "DistillationModel":
-        raise NotImplementedError("DistillationModel is not ported yet (ROADMAP.md A.12)")
+        return build_distillation_model(config)
     raise NotImplementedError("architecture %s: unknown" % name)

@@ -6,7 +6,8 @@ weight bridge (utils/weights.py) maps flax paths onto torch names one to one.
 ConvBNAct carries the int8 PTQ flow of ops/quant.py: its conv is a
 `QuantConv`, and with `emit_q` it hands its consumers an int8 QTensor under
 int8 mode. `finish_residual` and `quant_max_pool` keep a ResNet block's
-output int8. SEModule and DPModule wait for ROADMAP.md A.11.
+output int8. SEModule (PPLCNet's squeeze-excite) is below; DPModule, which
+no config of the repo uses, waits for ROADMAP.md A.11.
 """
 
 import torch

@@ -51,6 +51,9 @@ class _Tower(nn.Module):
 
 class DBHead(nn.Module):
     int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+    # run only in training mode; a frozen distillation model is built
+    # without them (architectures/distillation_model.py), as in JAX
+    train_only = ("thresh",)
 
     def __init__(self, in_channels, k=50):
         super().__init__()

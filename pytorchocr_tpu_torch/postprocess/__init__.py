@@ -4,24 +4,22 @@ import copy
 
 __all__ = ["build_post_process"]
 
-_LATER = {
-    "AttnLabelDecode": "A.11",
-    "DistillationCTCLabelDecode": "A.12",
-    "DistillationDBPostProcess": "A.12",
-}
+_LATER = {"AttnLabelDecode": "A.11"}
 
 
 def build_post_process(config, global_config=None):
     from .cls_postprocess import ClsPostProcess
-    from .db_postprocess import DBPostProcess
+    from .db_postprocess import DBPostProcess, DistillationDBPostProcess
     from .pan_postprocess import PANPostProcess
     from .pse_postprocess import PSEPostProcess
-    from .rec_postprocess import CTCLabelDecode
+    from .rec_postprocess import CTCLabelDecode, DistillationCTCLabelDecode
     from .table_postprocess import TableLabelDecode
 
     support = {"DBPostProcess": DBPostProcess, "PSEPostProcess": PSEPostProcess,
                "PANPostProcess": PANPostProcess, "CTCLabelDecode": CTCLabelDecode,
-               "ClsPostProcess": ClsPostProcess, "TableLabelDecode": TableLabelDecode}
+               "ClsPostProcess": ClsPostProcess, "TableLabelDecode": TableLabelDecode,
+               "DistillationDBPostProcess": DistillationDBPostProcess,
+               "DistillationCTCLabelDecode": DistillationCTCLabelDecode}
     config = copy.deepcopy(config)
     name = config.pop("name")
     if name == "None":

@@ -12,8 +12,10 @@ numpy and through `boxes_from_bitmap` (contours, cv2), the port's copy of
 the JAX class's host code (db_postprocess.py:163-245).
 
 The JAX class picks its device path by `hasattr(pred, "device")`, which a
-torch tensor (and a numpy 2 array) passes; the port decides by type. Not
-ported: DistillationDBPostProcess (ROADMAP.md A.12).
+torch tensor (and a numpy 2 array) passes; the port decides by type.
+
+DistillationDBPostProcess runs one DBPostProcess over each named model's
+maps (db_postprocess.py:248-281), so the device path, K1, once per model.
 """
 
 import cv2
@@ -197,3 +199,24 @@ class DBPostProcess:
         pts[:, 1] = pts[:, 1] - ymin
         cv2.fillPoly(mask, pts.reshape(1, -1, 2).astype(np.int32), 1)
         return cv2.mean(bitmap[ymin : ymax + 1, xmin : xmax + 1], mask)[0]
+
+
+class DistillationDBPostProcess:
+    """DBPostProcess over each named model's maps: {name: that model's
+    boxes}. From db_postprocess.py:248."""
+
+    def __init__(self, model_name=("student",), key=None, thresh=0.3, box_thresh=0.5,
+                 max_candidates=1000, unclip_ratio=1.5, use_dilation=False, score_mode="poly",
+                 cpp_speedup=False, out_polygon=False, **kwargs):
+        if not isinstance(model_name, (list, tuple)):
+            model_name = [model_name]
+        self.model_name = list(model_name)
+        self.key = key
+        self.post_process = DBPostProcess(
+            thresh=thresh, box_thresh=box_thresh, max_candidates=max_candidates,
+            unclip_ratio=unclip_ratio, use_dilation=use_dilation, score_mode=score_mode,
+            out_polygon=out_polygon)
+
+    def __call__(self, predicts, shape_list, **kwargs):
+        return {k: self.post_process(predicts[k], shape_list=shape_list)
+                for k in self.model_name}

@@ -4,7 +4,7 @@ The greedy collapse runs on the tensor's device (ops/ctc_decode.py); only
 (codes, lengths, conf) cross to the host, where the character table maps
 codes to text. The table and the label `decode` are the port's copy of
 pytorchocr_tpu/postprocess/rec_postprocess.py:13-66,126-127. Not ported:
-AttnLabelDecode (ROADMAP.md A.11) and DistillationCTCLabelDecode (A.12).
+AttnLabelDecode (ROADMAP.md A.11).
 """
 
 import numpy as np
@@ -62,3 +62,25 @@ class CTCLabelDecode:
                 conf_list.append(1 if text_prob is None else text_prob[batch_idx][idx])
             result_list.append(("".join(char_list), np.mean(conf_list) if conf_list else 0.0))
         return result_list
+
+
+class DistillationCTCLabelDecode(CTCLabelDecode):
+    """CTCLabelDecode over each named model's output (its `key` entry where
+    given): {name: that model's decode}. From rec_postprocess.py:130."""
+
+    def __init__(self, character_dict_path=None, use_space_char=False, model_name=("student",),
+                 key=None, **kwargs):
+        super().__init__(character_dict_path, use_space_char)
+        if not isinstance(model_name, (list, tuple)):
+            model_name = [model_name]
+        self.model_name = list(model_name)
+        self.key = key
+
+    def __call__(self, preds, label=None, *args, **kwargs):
+        output = {}
+        for name in self.model_name:
+            pred = preds[name]
+            if self.key is not None:
+                pred = pred[self.key]
+            output[name] = super().__call__(pred, label=label, *args, **kwargs)
+        return output

@@ -33,8 +33,7 @@ from ..utils.logging import get_logger, print_dict, process_rank
 from ..utils.save_load import save_model
 from ..utils.stats import TrainingStats
 
-SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "STARNet", "CLS", "SLANet"]
-_LATER_ALGS = {"Distillation": "A.12"}
+SUPPORTED_ALGS = ["DB", "PSE", "PAN", "CRNN", "STARNet", "CLS", "SLANet", "Distillation"]
 
 
 def set_random_seed(seed):
@@ -123,9 +122,6 @@ def preprocess(is_train=False, argv=None):
     logger = get_logger(name="root", log_file=log_file)
 
     alg = config["Architecture"]["algorithm"]
-    if alg in _LATER_ALGS:
-        raise NotImplementedError("training %s is not ported yet (ROADMAP.md %s)"
-                                  % (alg, _LATER_ALGS[alg]))
     if alg not in SUPPORTED_ALGS:
         raise ValueError("algorithm must be in {}".format(SUPPORTED_ALGS))
 

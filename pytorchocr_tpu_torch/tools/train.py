@@ -4,13 +4,16 @@ Usage:
   python -m pytorchocr_tpu_torch.tools.train -c configs/det/det_r18_db_synth.yml \
       [-o Global.epoch_num=45 ...]
   (configs/rec/rec_vgg_bilstm_ctc_synth.yml and configs/cls/cls_mbv3small_synth.yml
-  alike: CRNN and the direction classifier)
+  alike: CRNN and the direction classifier; configs/det/distillation/*.yml and
+  configs/rec/distillation/*.yml: distillation, DML and CML, whose teacher
+  comes from -o Architecture.Models.Teacher.pretrained=<checkpoint dir>)
 
 Runs on the first card; `-o Global.use_gpu=False` runs on the CPU, and
 `use_gpu: True` without a card raises. The model starts from the JAX
 package's initialisers (utils/seeded.py:seeded_init_, seeded by
-Global.seed), then the backbone's ImageNet weights, then a resume
-(Global.checkpoints) or finetune (Global.pretrained_model) checkpoint.
+Global.seed), then the backbone's ImageNet weights, then each distillation
+model's `pretrained` checkpoint, then a resume (Global.checkpoints) or
+finetune (Global.pretrained_model) checkpoint, as tools/train.py:90-93 does.
 """
 
 import torch
@@ -21,18 +24,23 @@ from ..metrics import build_metric
 from ..modeling import build_model
 from ..optimizer import build_optimizer
 from ..postprocess import build_post_process
-from ..utils.save_load import load_backbone_pretrained, load_model
+from ..utils.save_load import load_backbone_pretrained, load_model, load_submodel_pretrained
 from ..utils.seeded import seeded_init_
 from . import program
 
 
 def set_head_channels(config, post_process_class):
     """The charset's length (blank included) becomes the CTC head's
-    out_channels, as the JAX entry points set it (tools/train.py:55-63,
-    tools/eval.py:49-56). Distillation's per-model heads wait for ROADMAP.md
-    A.12."""
+    out_channels, every distillation model's head's alike, as the JAX entry
+    points set it (tools/train.py:55-63, tools/eval.py:49-56)."""
     if hasattr(post_process_class, "character"):
-        config["Architecture"]["Head"]["out_channels"] = len(post_process_class.character)
+        char_num = len(post_process_class.character)
+        arch = config["Architecture"]
+        if arch["algorithm"] == "Distillation":
+            for key in arch["Models"]:
+                arch["Models"][key]["Head"]["out_channels"] = char_num
+        else:
+            arch["Head"]["out_channels"] = char_num
 
 
 def build_train_model(config, device):
@@ -70,6 +78,7 @@ def main(config, device, logger, tsb_writer):
                                    step_each_epoch=len(train_dataloader),
                                    parameters=model.parameters())
     load_backbone_pretrained(model, config["Architecture"], logger)
+    load_submodel_pretrained(model, config["Architecture"], logger)
     global_state = load_model(config, model, optimizer, logger)
 
     logger.info("train dataloader has {} iters".format(len(train_dataloader)))

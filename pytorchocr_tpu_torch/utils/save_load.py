@@ -1,5 +1,6 @@
 """Checkpoint save/load — port of pytorchocr_tpu/utils/save_load.py
 (`_swap_dirs` :37, `save_model` :69, `load_model` :105,
+`load_backbone_pretrained` :231, `load_submodel_pretrained` :264,
 `load_pretrained_params` :305).
 
 A checkpoint prefix (latest / best_accuracy / epoch_N) is a directory holding
@@ -136,20 +137,54 @@ def load_pretrained_params(model, path, logger=None):
     return model
 
 
+def _sub_models(model, arch_config):
+    """(name, sub-model, its config) of each model of a DistillationModel,
+    in the config's order; the whole model alone otherwise."""
+    if "Models" not in arch_config:
+        return [("model", model, arch_config)]
+    return [(key, model.sub_model(key), arch_config["Models"][key])
+            for key in arch_config["Models"]]
+
+
 def load_backbone_pretrained(model, arch_config, logger=None):
-    """Architecture.Backbone.{pretrained, ckpt_path}: ImageNet weights for
-    the backbone, from a port checkpoint or a .pt state_dict of the backbone
-    module; a missing path is logged and skipped, as in JAX. From
-    save_load.py:239."""
+    """Architecture.Backbone.{pretrained, ckpt_path} (each
+    Architecture.Models.<Name>.Backbone's for distillation): ImageNet
+    weights for the backbone, from a port checkpoint or a .pt state_dict of
+    the backbone module; a missing path is logged and skipped, as in JAX.
+    From save_load.py:231."""
     logger = logger or get_logger()
-    bcfg = arch_config.get("Backbone") or {}
-    path = bcfg.get("ckpt_path")
-    if not bcfg.get("pretrained") or not path:
+    for _, sub, cfg in _sub_models(model, arch_config):
+        bcfg = cfg.get("Backbone") or {}
+        path = bcfg.get("ckpt_path")
+        if not bcfg.get("pretrained") or not path:
+            continue
+        if not os.path.exists(path):
+            logger.info("imagenet ckpt_path not exists: %s", path)
+            continue
+        state = _read_state(os.path.abspath(path), next(sub.parameters()).device)
+        _merge_into(sub.backbone, state.get("model", state), logger, "imagenet")
+        logger.info("load imagenet weights from %s", path)
+    return model
+
+
+def load_submodel_pretrained(model, arch_config, logger=None):
+    """Architecture.Models.<Name>.pretrained of a DistillationModel: a port
+    checkpoint directory (e.g. the teacher's best_accuracy) or a .pt
+    state_dict of a single model, grafted onto that model by name and shape
+    (the JAX `_merge_trees`); the other models keep their init, and entries
+    the model lacks (a frozen DB model's threshold tower) are left out. The
+    path must exist. From save_load.py:264."""
+    logger = logger or get_logger()
+    if "Models" not in arch_config:
         return model
-    if not os.path.exists(path):
-        logger.info("imagenet ckpt_path not exists: %s", path)
-        return model
-    state = _read_state(os.path.abspath(path), next(model.parameters()).device)
-    _merge_into(model.backbone, state.get("model", state), logger, "imagenet")
-    logger.info("load imagenet weights from %s", path)
+    for key, sub, cfg in _sub_models(model, arch_config):
+        path = cfg.get("pretrained")
+        if not path:
+            continue
+        path = os.path.abspath(path)
+        if not os.path.exists(path):  # an AssertionError, as the JAX package's assert raises
+            raise AssertionError("Models.%s.pretrained does not exist: %s" % (key, path))
+        state = _read_state(path, next(sub.parameters()).device)
+        _merge_into(sub, state.get("model", state), logger, "pretrained %s" % key)
+        logger.info("load %s pretrained from %s", key, path)
     return model

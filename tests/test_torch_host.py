@@ -88,7 +88,7 @@ def test_rec_transforms_match_jax(padding, shape):
 
 
 def test_unported_data_op_names_its_roadmap_item():
-    for name, item in (("CopyPaste", "A.15"), ("RecResizeImgForTest", "A.6"),
+    for name, item in (("CopyPaste", "A.15"), ("RecResizeImgForTest", "A.15"),
                        ("AttnLabelEncode", "A.11")):
         with pytest.raises(NotImplementedError, match=item):
             create_operators([{name: None}])

@@ -178,5 +178,5 @@ def test_registry_names_the_roadmap_item(section, name, item):
     arch = dict(DB_ARCH, **{section: {"name": name}})
     with pytest.raises(NotImplementedError, match=item):
         build_model(arch)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        build_post_process({"name": "DistillationDBPostProcess"})
+    with pytest.raises(NotImplementedError, match="A.11"):
+        build_post_process({"name": "AttnLabelDecode"})
