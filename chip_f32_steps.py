@@ -24,6 +24,16 @@ per model and leaf over all its batches, the largest elementwise error over
 that floor and relative L2 over the limit chip_smoke.GRAD_LIMIT: a LEAF line
 for each that reaches 0.5 of either, and a SUMMARY line a model.
 
+`--swap ctc,lstm,se,dw` repeats each CRNN (ctc, lstm) and classifier
+(se, dw) batch with one piece of the card's float32 step computed in
+float64 on the CPU, on the same batch and against the same float64 step:
+`ctc` the CTC loss and its gradient with respect to the logits (F.ctc_loss
+on the CPU in place of CUDA's), `lstm` both BiLSTMs (cuDNN's float32 LSTM),
+`se` every squeeze-excite block of MobileNetV3, `dw` every depthwise conv.
+Each prints its RESULT lines and, with `--floors pr6`, its own SUMMARY
+("rec+ctc", ...): the piece whose substitution takes the worst leaf under
+1.0 of its floor is the one that widens it.
+
 A failed check is printed, not fatal; the exit code is the number of failed
 checks (at most 1). --device cpu runs it on the CPU (with the CPU as the
 "card")."""
@@ -54,6 +64,85 @@ class OwnPieces(cs.Branches):
     def _pool(self, role, func, args, kwargs, replay):
         out = super()._pool(role, func, args, kwargs, replay)
         return func(*args, **kwargs) if replay else out
+
+
+def _cast_tree(obj, device, dtype):
+    if torch.is_tensor(obj):
+        return obj.to(device, dtype) if obj.is_floating_point() else obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _cast_tree(v, device, dtype) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cast_tree(v, device, dtype) for v in obj)
+    return obj
+
+
+def on_cpu64(module):
+    """`module`'s forward computed in float64 on the CPU when its input lies
+    on a card: parameters, buffers and inputs go over as float64, the output
+    comes back in the input's dtype, and autograd carries the gradients
+    back across both casts to the card's parameters."""
+    from torch.func import functional_call
+
+    def forward(*args, **kwargs):
+        first = next(t for t in args if torch.is_tensor(t))
+        if first.device.type != "cuda":
+            return type(module).forward(module, *args, **kwargs)
+        cpu = torch.device("cpu")
+        state = {k: _cast_tree(v, cpu, torch.float64)
+                 for k, v in list(module.named_parameters()) + list(module.named_buffers())}
+        del module.forward  # functional_call runs the class's forward
+        try:
+            out = functional_call(module, state, _cast_tree(args, cpu, torch.float64),
+                                  _cast_tree(kwargs, cpu, torch.float64))
+        finally:
+            module.forward = forward
+        return _cast_tree(out, first.device, first.dtype)
+
+    module.forward = forward
+    return module
+
+
+def loss_on_cpu64(loss):
+    """The loss computed in float64 on the CPU for predictions on a card:
+    its value and its gradient with respect to them come back as float32."""
+
+    def wrapped(preds, batch):
+        first = preds if torch.is_tensor(preds) else None
+        if first is None or first.device.type != "cuda":
+            return loss(preds, batch)
+        cpu = torch.device("cpu")
+        out = loss(_cast_tree(preds, cpu, torch.float64), _cast_tree(tuple(batch), cpu,
+                                                                   torch.float64))
+        return _cast_tree(out, first.device, first.dtype)
+
+    return wrapped
+
+
+SWAPS = {"rec": ("ctc", "lstm"), "cls": ("se", "dw")}
+
+
+def swap_pieces(piece):
+    """Patch chip_smoke.train_parts so that the card's step computes `piece`
+    in float64 on the CPU (the float64 and CPU float32 steps are unchanged:
+    on_cpu64 and loss_on_cpu64 act on card tensors only). Returns the undo."""
+    real = cs.train_parts
+
+    def parts(config, device, amp, schedule=None, wrap_loss=None, frozen=()):
+        if piece == "ctc" and device.type == "cuda":
+            inner = wrap_loss
+            wrap_loss = lambda loss: loss_on_cpu64(inner(loss) if inner else loss)  # noqa: E731
+        model, opt, step = real(config, device, amp, schedule, wrap_loss, frozen)
+        if device.type == "cuda":
+            for name, m in model.named_modules():
+                if ((piece == "lstm" and isinstance(m, torch.nn.LSTM))
+                        or (piece == "se" and type(m).__name__ == "_SE")
+                        or (piece == "dw" and isinstance(m, torch.nn.Conv2d)
+                            and m.groups > 1 and m.groups == m.in_channels)):
+                    on_cpu64(m)
+        return model, opt, step
+
+    cs.train_parts = parts
+    return lambda: setattr(cs, "train_parts", real)
 
 
 def seeded_batch(config, seed, bs, label=None):
@@ -115,6 +204,9 @@ def main():
     ap.add_argument("--own", action="store_true", help="also the steps on their own pieces")
     ap.add_argument("--floors", choices=("smoke", "pr6"), default="smoke",
                     help="phases 12-13's floors: the smoke's, or phase 11's (module docstring)")
+    ap.add_argument("--swap", default="",
+                    help="comma-separated pieces computed in float64 on the CPU in the card's "
+                         "step: ctc, lstm (CRNN), se, dw (classifier)")
     ap.add_argument("--device", default="cuda:0")
     args = ap.parse_args()
     pr6 = args.floors == "pr6"
@@ -146,6 +238,7 @@ def main():
                 cs.REC_TRAIN_CFG if rec else cs.CLS_TRAIN_CFG, os.path.join(tmp, kind + "_o"),
                 label, label, epochs) + cpu_opt)
             config["Train"]["loader"]["num_workers"] = 1
+            swaps = [p for p in args.swap.split(",") if p in SWAPS[kind]]
             for seed in range(n):
                 batch = seeded_batch(config, seed, cs.F32_BS, label)
                 for mode, cls_ in (("", real),) + (((" own pieces", OwnPieces),) if args.own
@@ -160,6 +253,18 @@ def main():
                     if not mode:
                         worst.add(kind, got)
                 cs.Branches = real
+                for piece in swaps:
+                    undo = swap_pieces(piece)
+                    try:
+                        t0 = time.time()
+                        got, control = cs.compare_f32_step(
+                            config, dev, batch, card, tag="%s%d+%s" % (kind, seed, piece),
+                            schedule=schedule, zero_grad=cs.bn_fed_biases,
+                            focus="rnn." if rec else None, card_floors=not pr6)()
+                    finally:
+                        undo()
+                    line("%s+%s" % (kind, piece), seed, "", got, control, got["pieces"], t0)
+                    worst.add("%s+%s" % (kind, piece), got)
         label = cs.make_train_pages(os.path.join(tmp, "train"), 16, cs.SEED + 11)
         config = program.preprocess(is_train=True, argv=cs.train_argv(
             os.path.join(tmp, "o"), label, label, 2) + cpu_opt)[0]

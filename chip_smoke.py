@@ -211,6 +211,7 @@ end of the run ("checks"), each reported then under its phase's tag.
 and 12), and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2815,10 +2816,12 @@ def card_step(config, dev, batch, tf32, schedule=None, branches=None, replay=Fal
 # show against the float64 step: between the TF32-off and TF32-on readings
 # (3.73e-3 and 1.67e-1 on an H100, chip_smoke.py phase 11)
 GRAD_LIMIT = 2e-2
-# phases 12-13: cuDNN's float32 weight-gradient algorithms round more than
-# the CPU's float32 (VGG's conv weights up to 324x the CPU float32 step's
-# worst error in the leaf, with TF32 off), so a leaf's floor is also this
-# share of its largest |g|: between the worst TF32-off reading of the error
+# phases 12-13: the card's float32 step lands further from float64 than the
+# CPU's float32 step in some leaves (CRNN up to 8.1x the CPU's worst error in
+# a leaf: CUDA's float32 F.ctc_loss gradient, which computed in float64 takes
+# every leaf under 0.5x; the classifier up to 1.7x, spread over the leaves,
+# no single piece: chip_f32_steps.py --swap, ROADMAP.md C), so a leaf's floor
+# is also this share of its largest |g|: between the worst TF32-off reading of the error
 # over a leaf's largest |g| and the least TF32-on one (CRNN 1.49e-2 and
 # 4.42e-2 over five runs, classifier 5.48e-3 and 6.48e-2 over four, on an
 # NVIDIA H100 80GB HBM3, 700 W)
@@ -3164,7 +3167,8 @@ class recorded_kernels:
             return out
 
         runmax.launches = propagate.launches = cc_label.alternations = 0
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         cc_label.segmented_runmax, propagate.propagate_rounds = record_k1, record_k2
         return self
 
@@ -5344,6 +5348,524 @@ def phase_distill(dev, card, tmp, train_label, eval_label, lines):
     return k1
 
 
+# phase 20: training across ranks (parallel/) on the one card. (a) the float32
+# DB step of phase 11's config at a global batch of DP_F32_BS on 2 gloo ranks;
+# (b) DP_STEPS bf16 steps of DP_BS a rank on 2 ranks through torchrun; (c)
+# NCCL_STEPS steps through torchrun at world 1 on NCCL against the plain
+# process, NCCL_BS a step; (d) the float32 CRNN step of rec_vgg_bilstm_ctc.yml
+# on 2 ranks with its CTC head split (model_parallel 2) against 1 rank, TP_BS
+# lines
+DP_F32_BS, DP_BS, DP_STEPS, NCCL_STEPS, NCCL_BS, TP_BS = 4, 16, 40, 4, 4, 8
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ranks:
+    """Processes of this script (`args` after it) started at once: the
+    ranks of one world (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT in their environment), or one process under `cmd` (torchrun
+    gives its ranks their environment). `wait()` returns their outputs and
+    fails on a non-zero exit; leaving the block kills what still runs."""
+
+    def __init__(self, tag, args, world=None, cmd=None):
+        self.tag = tag
+        if cmd is not None:
+            self.procs = [subprocess.Popen(cmd + [os.path.abspath(__file__)] + args, cwd=REPO,
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True)]
+            return
+        port = free_port()
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)] + args, cwd=REPO,
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+    def __enter__(self):
+        return self
+
+    def wait(self, timeout=600):
+        outs = []
+        for p in self.procs:
+            try:
+                out, _ = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            check(p.returncode == 0, "%s: a process exited %s:\n%s" % (self.tag, p.returncode,
+                                                                      out[-4000:]))
+            outs.append(out)
+        return outs
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+class RankBranches(Branches):
+    """A Branches replaying, in one rank of a world, the pieces that one
+    process recorded on the global batch: a record whose first axis is
+    `world` times the call's gives the rank's rows (of the batch, or of the
+    flattened maps of the OHEM bisection); one of the call's shape (a global
+    count's comparison, a scalar) is taken whole."""
+
+    def __init__(self, records, rank, world):
+        super().__init__()
+        self.records, self.rank, self.world = records, rank, world
+
+    def _next(self, role, name, shape):
+        i, records = self.pos[role], self.records[role]
+        if i < len(records) and records[i][0] == name:
+            rec = records[i][1]
+            if (len(shape) == rec.dim() >= 1 and rec.shape[0] == self.world * shape[0]
+                    and tuple(rec.shape[1:]) == tuple(shape[1:])):
+                self.pos[role] += 1
+                return rec[self.rank * shape[0]:(self.rank + 1) * shape[0]]
+        return super()._next(role, name, shape)
+
+
+def tp_config():
+    """rec_vgg_bilstm_ctc.yml at full width, its head over the 6,624 classes
+    of its character table."""
+    from pytorchocr_tpu_torch.postprocess import build_post_process
+    from pytorchocr_tpu_torch.tools.train import set_head_channels
+    from pytorchocr_tpu_torch.utils.config import load_config
+
+    config = load_config(REC_CFG)
+    set_head_channels(config, build_post_process(config["PostProcess"], config["Global"]))
+    return config
+
+
+def tp_batch(config):
+    """TP_BS seeded lines (1x32x320 in [-1, 1]) with labels of 5-25 classes."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 201)
+    c = config["Architecture"].get("in_channels", 3)
+    images = rng.uniform(-1, 1, (TP_BS, 32, 320, c)).astype(np.float32)
+    n_cls = config["Architecture"]["Head"]["out_channels"]
+    lengths = rng.randint(5, 26, TP_BS).astype(np.int64)
+    labels = np.zeros((TP_BS, 25), np.int64)
+    for i, n in enumerate(lengths):
+        labels[i, :n] = rng.randint(1, n_cls, n)
+    return [images, labels, lengths]
+
+
+def tp_step(config, dev, batch, shard):
+    """One float32 CRNN step (TF32 off) from the seeded weights, its CTC
+    head split over the model group when `shard`: (losses, gradients,
+    state_dict after, parameters before, the split leaves, the LR), on the
+    CPU in float64."""
+    import torch
+
+    from pytorchocr_tpu_torch.losses import build_loss
+    from pytorchocr_tpu_torch.optimizer import build_optimizer
+    from pytorchocr_tpu_torch.parallel.shardings import shard_params
+    from pytorchocr_tpu_torch.tools.train import build_train_model
+    from pytorchocr_tpu_torch.trainer import batch_to_device, make_train_step
+
+    with float32_on_card():
+        model = build_train_model(config, dev)
+        split = shard_params(model) if shard else []
+        opt, _ = build_optimizer(config["Optimizer"], epochs=1, step_each_epoch=10,
+                                 parameters=model.parameters())
+        step = make_train_step(model, build_loss(config["Loss"]), opt)
+        p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
+        losses = {k: float(v) for k, v in step(batch_to_device(batch, dev)).items()}
+    grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    return (losses, grads, {k: v.double().cpu() for k, v in model.state_dict().items()}, p0,
+            split, float(opt.lr_schedule(0)))
+
+
+def digest(tensors):
+    """sha256 of a dict of tensors, names and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in tensors.items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_job_main(job_path, out_path):
+    """One of phase 20's two gloo ranks on the job's device (the card):
+    (a) the DB step on its rows, replaying the 1-rank step's pieces, then
+    (d) the CRNN step with the CTC head split over the same two ranks
+    (model_parallel 2). Rank 0 saves its steps whole (in float32, as they
+    were computed), rank 1 their digests and its shard of the head."""
+    import torch
+
+    from pytorchocr_tpu_torch.parallel import mesh
+
+    job = torch.load(job_path, weights_only=False)
+    dev = torch.device(job["device"])
+    grid = mesh.setup("gloo", dev)
+    db = job["db"]
+    n = len(db["batch"][0]) // grid.data_world
+    rows = [b[grid.data_rank * n:(grid.data_rank + 1) * n] for b in db["batch"]]
+    branches = RankBranches(db["records"], grid.data_rank, grid.data_world)
+    losses, grads, state, p0 = card_step(db["config"], dev, rows, tf32=False,
+                                         schedule=db["schedule"], branches=branches,
+                                         replay=True, loss_pieces=True)
+    out = dict(rank=grid.rank, flips=branches.report(), db_losses=losses,
+               db_state_digest=digest(state))
+    if grid.rank == 0:
+        out["db"] = tuple({k: v.float() for k, v in d.items()} for d in (grads, state, p0))
+    grid = mesh.create_mesh(model_parallel=2)
+    tp = job["tp"]
+    losses, grads, state, p0, split, lr = tp_step(tp["config"], dev, tp["batch"], shard=True)
+    out.update(tp_losses=losses, tp_split=split, tp_model_rank=grid.model_rank,
+               tp_replicated_digest=digest({k: v for k, v in state.items() if k not in split}),
+               tp_shards=tuple({k: d[k].float() for k in split} for d in (grads, state, p0)))
+    if grid.rank == 0:
+        out["tp"] = tuple({k: v.float() for k, v in d.items()} for d in (grads, state, p0))
+    torch.save(out, "%s.rank%d.pt" % (out_path, grid.rank))
+    mesh.teardown()
+
+
+def traced_train(argv, deterministic, started=None):
+    """tools.train.run(argv), every K1 call of its evaluate recorded and
+    held to the plain version, cuDNN deterministic if asked: its report,
+    the K1 launches and shapes, the digest of its final parameters and its
+    place in the world. `started` names a file made when the evaluate
+    begins (the train iterations are over)."""
+    import torch
+
+    from pytorchocr_tpu_torch.parallel import mesh
+    from pytorchocr_tpu_torch.tools import program
+    from pytorchocr_tpu_torch.tools import train as train_cli
+
+    kept = {}
+    saved = (program.train, program.evaluate, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+
+    def train(config, device, train_loader, valid_loader, model, *args, **kwargs):
+        kept["model"] = model
+        return saved[0](config, device, train_loader, valid_loader, model, *args, **kwargs)
+
+    def evaluate(*args, **kwargs):
+        if started is not None:
+            open(started, "w").close()
+        return saved[1](*args, **kwargs)
+
+    program.train, program.evaluate = train, evaluate
+    if deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        with recorded_kernels() as rec:
+            report = train_cli.run(argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        (program.train, program.evaluate, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    shapes = rec.hold("dp-train-eval")
+    grid = mesh.get_mesh()
+    return dict(report=report, k1=rec.k1_launches, shapes=shapes,
+                digest=digest(kept["model"].state_dict()), run_s=run_s,
+                rank=grid.rank if grid else 0, world=grid.world if grid else 1,
+                backend=grid.backend if grid else None)
+
+
+def train_rank_main(out_path, argv, deterministic):
+    """traced_train in one process of a torchrun world, written to
+    `out_path`.rank<r>.json (`out_path`.evaluating made when rank 0's
+    evaluate begins)."""
+    from pytorchocr_tpu_torch.parallel import mesh
+
+    out = traced_train(argv, deterministic, started=out_path + ".evaluating")
+    with open("%s.rank%d.json" % (out_path, out["rank"]), "w") as f:
+        json.dump(out, f, default=float)
+    mesh.teardown()
+
+
+def read_ranks(out_path, n, ext="json"):
+    import torch
+
+    paths = ["%s.rank%d.%s" % (out_path, r, ext) for r in range(n)]
+    check(all(os.path.exists(p) for p in paths), "%s: %d rank outputs, not %d"
+          % (out_path, sum(os.path.exists(p) for p in paths), n))
+    if ext == "json":
+        return [json.load(open(p)) for p in paths]
+    return [torch.load(p, weights_only=False) for p in paths]
+
+
+def dp_start_ranks(config, dev, tmp, train_label, stack):
+    """Phase 20 (a) and (d): the 1-rank DB step recording its pieces, its
+    float64 reference submitted, the 2 ranks started (in `stack`, an
+    ExitStack) with both jobs, then the 1-rank CRNN step here. Returns what
+    dp_ranks_held reads."""
+    import torch
+
+    schedule = (TRAIN_STEPS // (TRAIN_PAGES // TRAIN_BS), TRAIN_PAGES // TRAIN_BS)
+    batch = first_batches(config, 1, DP_F32_BS, train_label)[0]
+    branches = Branches()
+    one = card_step(config, dev, batch, tf32=False, schedule=schedule, branches=branches,
+                    loss_pieces=True)
+    records = {role: [(kind, t.cpu()) for kind, t in recs]
+               for role, recs in branches.records.items()}
+    job = cpu_job(f64_steps, config, batch, schedule, None, records, True, None)
+    tp_cfg = tp_config()
+    tp_in = tp_batch(tp_cfg)
+    path = os.path.join(tmp, "dp_ranks")
+    torch.save(dict(device=str(dev), tp=dict(config=tp_cfg, batch=tp_in),
+                    db=dict(config=config, batch=batch, records=records, schedule=schedule)),
+               path + ".job")
+    procs = stack.enter_context(ranks("dp-ranks", ["--rank-job", path + ".job", path], world=2))
+    return dict(procs=procs, path=path, one=one, job=job, tp_one=tp_step(tp_cfg, dev, tp_in,
+                                                                         shard=False),
+                n_cls=tp_cfg["Architecture"]["Head"]["out_channels"])
+
+
+def dp_ranks_held(started, card):
+    """Phase 20 (a) and (d)'s checks on the ranks' outputs; returns (a)'s
+    float64 check, held back to the end of the run."""
+    import torch
+
+    started["procs"].wait()
+    got = read_ranks(started["path"], 2, "pt")
+    check(got[0]["db_losses"] == got[1]["db_losses"]
+          and got[0]["db_state_digest"] == got[1]["db_state_digest"],
+          "dp-f32: the ranks' losses or parameters after the update differ: %s, %s"
+          % (got[0]["db_losses"], got[1]["db_losses"]))
+    say("dp-f32", "2 ranks over gloo on one card, one float32 step each on %d of %d pages, "
+        "bit-identical parameters after the update (not NCCL) on %s"
+        % (DP_F32_BS // 2, DP_F32_BS, card))
+    dp_tp_held(got, started["tp_one"], started["n_cls"])
+    two = (got[0]["db_losses"],) + tuple({k: v.double() for k, v in d.items()}
+                                         for d in got[0]["db"])
+    one, job, flips = started["one"], started["job"], got[0]["flips"]
+
+    def held():
+        steps = job.result()
+        ref = steps["l_ref"], steps["g_ref"], steps["ref_sd"]
+        skip = db_zero_grad_leaves(steps["g_ref"])
+        lines = []
+        for what, step in (("2 ranks", two), ("1 rank", one)):
+            r = held_step(step, ref, steps["floor"], steps["lr"], skip)
+            loss = max(abs(step[0][k] - v) / abs(v) for k, v in steps["l_ref"].items())
+            check(loss <= 1e-4, "dp-f32 (%s): loss off by %.3g relative" % (what, loss))
+            check(r["grad"][0] <= GRAD_LIMIT, "dp-f32 (%s): gradient %s off by %.3g relative L2"
+                  % (what, r["grad"][1], r["grad"][0]))
+            check(r["elem"][0] <= 1.0, "dp-f32 (%s): gradient %s off by %.3g of its leaf's CPU "
+                  "float32 worst error" % (what, r["elem"][1], r["elem"][0]))
+            check(r["outside"] == 0, "dp-f32 (%s): %d parameters past their bound; the first: "
+                  "%s" % (what, r["outside"], r["first"]))
+            check(r["bn"] <= 1e-3, "dp-f32 (%s): BN running statistics off by %.3g"
+                  % (what, r["bn"]))
+            lines.append("%s: loss %.6f (%.2e relative), gradients worst %.2e relative L2 (%s), "
+                         "elementwise %.3g of the floor (%s), BN statistics %.2e" % (
+                             what, step[0]["loss"], loss, r["grad"][0], r["grad"][1],
+                             r["elem"][0], r["elem"][1], r["bn"]))
+        apart = max((float((two[1][k] - one[1][k]).abs().max()) / steps["floor"][k], k)
+                    for k in two[1] if k not in skip)
+        say("dp-f32", "float32 DB-ResNet18 step (TF32 off, global batch %d at %dx%d, gloo, "
+            "2 ranks on one card) against the float64 step within phase 11's floors (the CPU "
+            "float32 step's worst error in each leaf), the ranks replaying the 1-rank step's "
+            "pieces by rows (elements on another piece: %s): %s; the 2-rank gradients at most "
+            "%.3g of a floor from the 1-rank ones (%s)"
+            % (DP_F32_BS, TRAIN_SIZE, TRAIN_SIZE, flips, "; ".join(lines), *apart))
+
+    return held
+
+
+def dp_tp_held(got, one, n_cls):
+    """Phase 20 (d): the split CRNN step of the two ranks (`got`) against
+    the 1-rank step `one` on phase 12's floor form."""
+    import torch
+
+    got = sorted(got, key=lambda r: r["tp_model_rank"])
+    split = got[0]["tp_split"]
+    check(split == ["head.fc.weight", "head.fc.bias"]
+          and got[0]["tp"][1]["head.fc.weight"].shape[0] * 2 == n_cls,
+          "dp-tp: the CTC head is not split in half: %s" % split)
+    check(got[0]["tp_replicated_digest"] == got[1]["tp_replicated_digest"]
+          and got[0]["tp_losses"] == got[1]["tp_losses"],
+          "dp-tp: the model ranks' replicated leaves or losses differ")
+
+    def whole(i):
+        return {k: torch.cat([r["tp_shards"][i][k] for r in got]) if k in split else v
+                for k, v in got[0]["tp"][i].items()}
+
+    tp = (got[0]["tp_losses"],) + tuple({k: v.double() for k, v in whole(i).items()}
+                                        for i in range(3))
+    l1, g1, sd1, _, _, lr = one
+    skip = bn_fed_biases(g1)  # conv biases that feed a train-mode BN: 0 up to rounding
+    for k in skip:
+        scale = 1e-4 * float(g1[k[:-4] + "weight"].norm())
+        check(float(tp[1][k].norm()) < scale, "dp-tp: %s has a gradient" % k)
+    g1 = {k: g for k, g in g1.items() if k not in skip}
+    floor = {k: ELEM_SCALE * float(g.abs().max()) for k, g in g1.items()}
+    r = held_step(tp, (l1, g1, sd1), floor, lr)
+    loss = abs(tp[0]["loss"] - l1["loss"]) / abs(l1["loss"])
+    check(loss <= 1e-4, "dp-tp: loss %.7g against %.7g on 1 rank" % (tp[0]["loss"], l1["loss"]))
+    check(r["grad"][0] <= GRAD_LIMIT and r["elem"][0] <= 1.0 and r["outside"] == 0,
+          "dp-tp: gradient %s off by %.3g relative L2, %s at %.3g of its floor, %d parameters "
+          "past their bound" % (r["grad"][1], r["grad"][0], r["elem"][1], r["elem"][0],
+                                r["outside"]))
+    say("dp-tp", "float32 CRNN step of rec_vgg_bilstm_ctc.yml (VGG v1, BiLSTM 256, CTC over %d "
+        "classes, bs %d at 32x320, TF32 off) on 2 ranks with model_parallel 2 (gloo, one card: "
+        "each rank holds %d of the head's columns, the logits gathered by a zero-padded "
+        "all-reduce) against 1 rank: loss %.6f against %.6f (%.2e relative), gradients worst "
+        "%.2e relative L2 (%s), elementwise %.3g of phase 12's floor (%g of a leaf's largest "
+        "|g|; %s), %d parameters past their bound, the replicated leaves bit-identical on both "
+        "ranks" % (n_cls, TP_BS, n_cls // 2, tp[0]["loss"], l1["loss"], loss, r["grad"][0],
+                   r["grad"][1], r["elem"][0], ELEM_SCALE, r["elem"][1], r["outside"]))
+
+
+def dp_train_start(tmp, train_label, eval_label, stack):
+    """Phase 20 (b): torchrun started (in `stack`). Returns its arguments
+    and paths."""
+    epochs = DP_STEPS // (TRAIN_PAGES // (2 * DP_BS))
+    out = os.path.join(tmp, "dp_out")
+    argv = train_argv(out, train_label, eval_label, epochs) + [
+        "Train.loader.batch_size_per_card=%d" % DP_BS, "Global.dist_backend=gloo",
+        "Global.ranks_per_card=2"]
+    path = os.path.join(tmp, "dp_train")
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "2"]
+    procs = stack.enter_context(ranks("dp-train", ["--train-rank", path] + argv, cmd=torchrun))
+    return dict(procs=procs, out=out, argv=argv, path=path, t0=time.perf_counter())
+
+
+def dp_train_held(started, card):
+    """Phase 20 (b)'s checks and report. Returns the K1 launches of its
+    evaluate."""
+    import numpy as np
+
+    started["procs"].wait(timeout=900)
+    took = time.perf_counter() - started["t0"]
+    out, argv = started["out"], started["argv"]
+    got = read_ranks(started["path"], 2)
+    check([g["world"] for g in got] == [2, 2] and got[0]["backend"] == "gloo",
+          "dp-train: not a gloo world of 2: %s" % [(g["world"], g["backend"]) for g in got])
+    check(got[0]["digest"] == got[1]["digest"], "dp-train: the ranks' final parameters differ")
+    rep = [g["report"] for g in got]
+    losses = rep[0]["losses"]
+    check(rep[0]["steps"] == DP_STEPS and losses == rep[1]["losses"],
+          "dp-train: %d steps, or the ranks' losses differ" % rep[0]["steps"])
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < 0.7 * first, "dp-train: the loss fell from %.4f to %.4f only" % (first, last))
+    k1 = got[0]["k1"]
+    check(k1 > 0 and got[1]["k1"] == 0, "dp-train: K1 launches %d on rank 0, %d on rank 1 "
+          "(rank 0 alone evaluates)" % (k1, got[1]["k1"]))
+    log = open(os.path.join(out, "train.log")).read()
+    check(log.count("train with torch") == 1 and "rank 0 of 2 (gloo)" in log,
+          "dp-train: train.log is not rank 0's alone")
+    for prefix in ("latest", "best_accuracy"):
+        check(os.path.isfile(os.path.join(out, prefix, "state.pt")),
+              "dp-train: rank 0 wrote no %s" % prefix)
+    best = rep[0]["best"]
+    metric = eval_run(argv + ["Global.checkpoints=%s" % os.path.join(out, "best_accuracy")])
+    check(all(metric[k] == best[k] for k in ("hmean", "precision", "recall")),
+          "dp-train: tools.eval.run on rank 0's best_accuracy gives hmean %.4f, the run %.4f"
+          % (metric["hmean"], best["hmean"]))
+    wall = max(r["wall_s"] for r in rep)
+    say("dp-train", "torchrun --nproc_per_node 2, gloo, both ranks on one card (Global."
+        "ranks_per_card 2): %d bf16 steps of bs %d a rank (global %d) at %dx%d; mean loss of "
+        "the first 10 steps %.4f, of the last 10 %.4f; %s; %.3f steps/s and %.1f global "
+        "samples/s over the train iterations (%.1f s of %.1f s with the start, which ran "
+        "beside (a), (c) and (d), and the evaluate; gloo reduces through the host: not NCCL, "
+        "not the card's data-parallel rate) on %s"
+        % (DP_STEPS, DP_BS, 2 * DP_BS, TRAIN_SIZE, TRAIN_SIZE, first, last, "; ".join(
+            "rank %d: %.3f steps/s, %.1f samples/s, loader wait %.1f%%" % (
+                g["rank"], r["steps"] / r["wall_s"], r["samples"] / r["wall_s"],
+                100.0 * r["reader_s"] / r["wall_s"]) for g, r in zip(got, rep)),
+           rep[0]["steps"] / wall, sum(r["samples"] for r in rep) / wall, wall, took, card))
+    say("dp-train", "rank 0's evaluate after the last epoch: runmax.launches %d, each launch's "
+        "output == the plain version on its inputs (%s), hmean %.4f; rank 1 launched none and "
+        "took the broadcast metric; rank 0 alone wrote train.log, latest and best_accuracy; "
+        "tools.eval.run in one process on best_accuracy: hmean %.4f"
+        % (k1, got[0]["shapes"], best["hmean"], metric["hmean"]))
+    return k1
+
+
+def dp_nccl(tmp, train_label, eval_label, stack):
+    """Phase 20 (c): the NCCL world-1 run and the plain process started (in
+    `stack`; the plain run in a process of its own, as the driver runs it:
+    this process's state, its allocator's addresses too, may move cuBLAS's
+    choices). Returns the function that waits and checks."""
+    pages = os.path.join(tmp, "nccl_pages.txt")  # one epoch of NCCL_STEPS steps
+    with open(train_label) as f, open(pages, "w") as g:
+        g.writelines(f.readlines()[:NCCL_STEPS * NCCL_BS])
+    argv = {name: train_argv(os.path.join(tmp, "nccl_" + name), pages, eval_label, 1) + [
+        "Train.loader.batch_size_per_card=%d" % NCCL_BS, "Train.loader.num_workers=1",
+        "Global.eval_epoch_step=[100,1]"] for name in ("nccl", "plain")}
+    path = os.path.join(tmp, "nccl")
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    nccl = stack.enter_context(ranks("dp-nccl", ["--train-rank", path, "--deterministic"]
+                                     + argv["nccl"], cmd=torchrun))
+    plain = stack.enter_context(ranks("dp-plain", ["--train-rank", path + "_plain",
+                                                   "--deterministic"] + argv["plain"],
+                                      cmd=[sys.executable]))
+    return lambda: dp_nccl_held(nccl, plain, path)
+
+
+def dp_nccl_held(nccl, plain, path):
+    nccl.wait()
+    plain.wait()
+    got, plain = read_ranks(path, 1)[0], read_ranks(path + "_plain", 1)[0]
+    check(got["backend"] == "nccl" and got["world"] == 1 and plain["backend"] is None,
+          "dp-nccl: %s / %s" % ((got["backend"], got["world"]), plain["backend"]))
+    losses = got["report"]["losses"]
+    check(len(losses) == NCCL_STEPS and losses == plain["report"]["losses"]
+          and got["digest"] == plain["digest"],
+          "dp-nccl: the NCCL world-1 run and the plain process differ: losses %s / %s"
+          % (losses, plain["report"]["losses"]))
+    say("dp-nccl", "torchrun --nproc_per_node 1 on NCCL (the gradients through its all-reduce) "
+        "and the plain process, %d bf16 steps of bs %d, cuDNN deterministic, one loader "
+        "thread: losses %s on both, final parameters bit for bit equal (sha256 %s...); "
+        "tools.train.run %.1f s and %.1f s in the two"
+        % (NCCL_STEPS, NCCL_BS, ", ".join("%.6f" % v for v in losses), got["digest"][:16],
+           got["run_s"], plain["run_s"]))
+
+
+def phase_dp(dev, card, tmp, train_label, eval_label):
+    """Phase 20: training across ranks. Its parts start at once ((b)'s
+    torchrun first, then (c)'s two processes, then (a)'s 1-rank step, the
+    (a) + (d) pair of ranks and (d)'s 1-rank step): each process takes
+    seconds to reach the card, and only (b) times anything, its train
+    iterations, which begin after the others' steps are mostly done. The
+    CPU reference process is stopped throughout. Returns K1's launches on
+    the DP-train-eval path."""
+    from pytorchocr_tpu_torch.tools import program
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t0
+
+    config = program.preprocess(is_train=True, argv=train_argv(
+        os.path.join(tmp, "dp_f32_out"), train_label, eval_label, 2))[0]
+    with contextlib.ExitStack() as stack, paused():
+        b = dp_train_start(tmp, train_label, eval_label, stack)
+        finish_c = dp_nccl(tmp, train_label, eval_label, stack)
+        ad = dp_start_ranks(config, dev, tmp, train_label, stack)
+        mark("all started")
+        finish_c()
+        mark("c done")
+        held = dp_ranks_held(ad, card)
+        mark("a, d done")
+        k1 = dp_train_held(b, card)
+        mark("b done")
+    later(held)
+    say("dp", "phase 20 took %.1f s: %s (seconds from its start)" % (
+        time.perf_counter() - t0, ", ".join("%s %.1f" % kv for kv in parts.items())))
+    return k1
+
+
 def forbidden_modules():
     """Modules of JAX, flax or the JAX package that this process loaded: the
     port and this script import none of them."""
@@ -5357,14 +5879,15 @@ STREAMED = ("back-to-back launches in one CUDA graph over rotating copies of the
 
 # each phase's time budget (s), printed beside its time: a phase past it says
 # so on its line and does not fail the run (the host's speed moves every
-# phase; PERF.md §6); they sum to at most 900 s
+# phase; PERF.md §6); they sum to at most 990 s
 PHASE_BUDGET_S = {"1-2": 40, "3": 10, "4": 2, "5": 20, "6": 35, "7": 40, "8": 35, "9": 5,
                   "9 (requant)": 3, "10": 20, "11": 60, "12": 75, "13": 60, "14": 70, "15": 70,
-                  "16": 35, "17": 75, "18": 85, "19": 140, "checks": 10}
+                  "16": 35, "17": 75, "18": 85, "19": 140, "20": 100, "checks": 10}
 ORDER = tuple(p for p in PHASE_BUDGET_S if p != "checks")
 # what a phase reads from earlier ones (--only adds them)
 NEEDS = {"6": ("5",), "8": ("5",), "9": ("8",), "9 (requant)": ("8",), "10": ("5",),
-         "14": ("11",), "15": ("11",), "16": ("5",), "17": ("11", "12"), "19": ("11", "12")}
+         "14": ("11",), "15": ("11",), "16": ("5",), "17": ("11", "12"), "19": ("11", "12"),
+         "20": ("11",)}
 # the CPU reference jobs a phase reads (submit_references)
 REFS = {"5": ("slice",), "6": ("slice", "pse"), "7": ("pan",), "8": ("slice", "int8"),
         "10": ("slice", "cls"), "12": ("lines rec",), "13": ("lines cls",),
@@ -5395,6 +5918,16 @@ def main():
         import chip_smoke
 
         chip_smoke.cpu_worker_main(sys.argv[sys.argv.index("--cpu-worker") + 1])
+        return
+    if sys.argv[1:2] in (["--rank-job"], ["--train-rank"]):  # a rank of phase 20
+        sys.path.insert(0, REPO)
+        import chip_smoke
+
+        if sys.argv[1] == "--rank-job":
+            chip_smoke.rank_job_main(sys.argv[2], sys.argv[3])
+        else:
+            deterministic = sys.argv[3:4] == ["--deterministic"]
+            chip_smoke.train_rank_main(sys.argv[2], sys.argv[3 + deterministic:], deterministic)
         return
     try:
         import torch
@@ -5472,6 +6005,7 @@ def run_phases(dev, card, tmp, phases):
     phase("17", phase_zoo_train, dev, card, tmp, *labels, lines)
     phase("18", phase_table, dev, card, tmp)
     phase("19", phase_distill, dev, card, tmp, *labels, lines)
+    phase("20", phase_dp, dev, card, tmp, *labels)
     db = (phase("5", phase_slice, dev, card, tmp, pages, refs.get("slice")) or (0, None))[1]
     phase("6", phase_pse, dev, card, tmp, pages, db and db["rec_pt"], refs.get("pse"))
     phase("7", phase_pan, dev, card, tmp, pages, refs.get("pan"))
@@ -5493,7 +6027,7 @@ def run_phases(dev, card, tmp, phases):
     k1_paths = {"DB": got["5"][0], "PSE": got["6"][0], "PAN": got["7"],
                 "train-eval": got["11"][0], "PSE-train-eval": got["14"][0],
                 "PAN-train-eval": got["15"][0], **got["16"], "DB++-train-eval": got["17"],
-                **got["19"]}
+                **got["19"], "DP-train-eval": got["20"]}
     k2_paths = {"PSE": got["6"][1], "PSE-train-eval": got["14"][1]}
     return dict(k1_paths=k1_paths, k2_paths=k2_paths, k1=got["1-2"], k2=got["3"], q8=got["9"],
                 rq=got["9 (requant)"], q8_launches=got["8 launches"], total=total)

@@ -18,7 +18,9 @@ composed by `deploy.run_ocr.OCRer.run_many`, with int8 PTQ detection
 training of DB detectors: the train-time data (`data/`), the DB loss
 (`losses/`), optax's Adam (`optimizer/`), the det metric (`metrics/`), the
 train step (`trainer.py`), checkpoints (`utils/save_load.py`) and the
-`tools.train` / `tools.eval` entry points. Everything else of the JAX package
+`tools.train` / `tools.eval` entry points, on one card or on N ranks under
+`torch.distributed.run` (`parallel/`: the JAX step on the global batch, the
+CTC head's vocabulary split over a model group). Everything else of the JAX package
 raises `NotImplementedError` naming the ROADMAP.md item that ports it.
 
 Layouts: modules are NCHW `nn.Module`s (channels_last on CUDA); the public

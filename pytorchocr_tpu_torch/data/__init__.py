@@ -1,13 +1,15 @@
 """Data layer — the port's copy of pytorchocr_tpu/data/__init__.py
 (`build_dataloader`, :27) and its registry (`data/imaug/__init__.py`).
 
-The per-rank shard comes from torch.distributed when a process group is
-initialised (the JAX package asks jax.process_index/count, :18-24); the port
-trains on one card, so it is (0, 1) until multi-GPU training (ROADMAP.md
-A.8). SimpleDataSet (line files) and PubTabDataSet (PubTabNet jsonl tables).
+The training loader's shard is this rank's data index and the data world
+of parallel/mesh.py (the JAX package asks jax.process_index / count,
+:18-24), (0, 1) in one process; the eval loader is not sharded (:52).
+SimpleDataSet (line files) and PubTabDataSet (PubTabNet jsonl tables).
 """
 
 import copy
+
+from ..parallel.mesh import data_shard
 
 from .imaug import create_operators, transform
 from .loader import OCRDataLoader, default_collate
@@ -16,14 +18,6 @@ from .simple_dataset import SimpleDataSet
 
 __all__ = ["build_dataloader", "create_operators", "default_collate", "OCRDataLoader",
            "PubTabDataSet", "SimpleDataSet", "transform"]
-
-
-def _process_info():
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def build_dataloader(config, mode, logger, seed=None):
@@ -44,7 +38,7 @@ def build_dataloader(config, mode, logger, seed=None):
     loader_config = config[mode]["loader"]
     shard_index, num_shards = 0, 1
     if mode == "Train" and config["Global"].get("distributed", False):
-        shard_index, num_shards = _process_info()
+        shard_index, num_shards = data_shard()
     data_loader = OCRDataLoader(
         dataset=dataset,
         batch_size=loader_config["batch_size_per_card"],

@@ -11,10 +11,20 @@ differentiable as in JAX, where `jax.grad` runs through the `fori_loop`: after
 the loop `t` is a dyadic mix of the map's min and max, so `t * (k - count)`
 sends gradient to those elements (torch's `amin`/`amax`, like JAX's
 min/max, split it evenly among ties).
+
+DB's functions (`_topk_sum`, `balance_loss`, `dice_loss`, `mask_l1_loss`)
+take their sums, counts and OHEM range over the global batch: under a mesh
+with several ranks in its data group they go through
+parallel.functional, so k, the bisection's threshold, the selected sum,
+the dice and the L1 are the whole batch's, as the JAX step's are; at one
+rank those are the local operations. PSE/PAN's per-sample functions stay
+per sample.
 """
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.functional import all_sum, global_max, global_min
 
 EPS = 1e-6
 
@@ -37,12 +47,16 @@ def bce(pred, gt):
     return -(gt * torch.log(p) + (1.0 - gt) * torch.log1p(-p))
 
 
-def _kth_largest_threshold(values, k, mask=None, iters=30):
+def _kth_largest_threshold(values, k, mask=None, iters=30, global_batch=False):
     """Bisection for t with count(valid values > t) <= k <= count(>= t),
     over the last axis (leading axes are a batch, `k` broadcasts against
     them). With `mask`, the range and the counts take the valid values only;
-    an empty mask collapses the range to 0. From basic.py:41."""
-    if mask is None:
+    an empty mask collapses the range to 0. With `global_batch` (1-D
+    values, no mask) the range and every probe's count are over every
+    rank's values. From basic.py:41."""
+    if global_batch:
+        lo, hi = global_min(values), global_max(values)
+    elif mask is None:
         lo, hi = values.amin(-1), values.amax(-1)
     else:
         lo = torch.where(mask, values, float("inf")).amin(-1)
@@ -54,18 +68,19 @@ def _kth_largest_threshold(values, k, mask=None, iters=30):
         above = values > mid.unsqueeze(-1)
         if mask is not None:
             above = above & mask
-        too_many = above.sum(-1) > k
+        count = above.sum(-1)
+        too_many = (all_sum(count) if global_batch else count) > k
         lo, hi = torch.where(too_many, mid, lo), torch.where(too_many, hi, mid)
     return hi
 
 
 def _topk_sum(values, k):
-    """Sum of the k largest entries (k a float tensor), exact up to ties at
-    the threshold value. From basic.py:73."""
-    t = _kth_largest_threshold(values, k)
+    """Sum of the k largest entries of every rank's 1-D `values` (k a float
+    tensor), exact up to ties at the threshold value. From basic.py:73."""
+    t = _kth_largest_threshold(values, k, global_batch=True)
     above = values > t
-    cnt_above = above.sum()
-    sum_above = torch.where(above, values, 0.0).sum()
+    cnt_above = all_sum(above.sum())
+    sum_above = all_sum(torch.where(above, values, 0.0).sum())
     return sum_above + t * torch.clamp(k - cnt_above, min=0.0)
 
 
@@ -74,8 +89,8 @@ def balance_loss(pred, gt, mask, main_loss_type="BCELoss", negative_ratio=3, bal
     k = ratio * #positives. From basic.py:84."""
     positive = gt * mask
     negative = (1.0 - gt) * mask
-    positive_count = positive.sum()
-    negative_count = torch.minimum(negative.sum(), positive_count * negative_ratio)
+    positive_count = all_sum(positive.sum())
+    negative_count = torch.minimum(all_sum(negative.sum()), positive_count * negative_ratio)
 
     if main_loss_type in ("BCELoss", "CrossEntropy"):
         loss = bce(pred, gt)
@@ -93,9 +108,9 @@ def balance_loss(pred, gt, mask, main_loss_type="BCELoss", negative_ratio=3, bal
     positive_loss = positive * loss
     negative_loss = negative * loss
     selected_neg_sum = _topk_sum(negative_loss.reshape(-1), negative_count)
-    balance_val = (positive_loss.sum() + selected_neg_sum) / (
-        positive_count + negative_count + EPS)
-    no_neg_val = positive_loss.sum() / (positive_count + EPS)
+    positive_sum = all_sum(positive_loss.sum())
+    balance_val = (positive_sum + selected_neg_sum) / (positive_count + negative_count + EPS)
+    no_neg_val = positive_sum / (positive_count + EPS)
     return torch.where(negative_count > 0, balance_val, no_neg_val)
 
 
@@ -103,14 +118,14 @@ def dice_loss(pred, gt, mask, weights=None):
     """Global dice. From basic.py:126."""
     if weights is not None:
         mask = weights * mask
-    intersection = (pred * gt * mask).sum()
-    union = (pred * mask).sum() + (gt * mask).sum() + EPS
+    intersection = all_sum((pred * gt * mask).sum())
+    union = all_sum((pred * mask).sum()) + all_sum((gt * mask).sum()) + EPS
     return 1.0 - 2.0 * intersection / union
 
 
 def mask_l1_loss(pred, gt, mask):
     """From basic.py:149."""
-    return ((pred - gt).abs() * mask).sum() / (mask.sum() + EPS)
+    return all_sum(((pred - gt).abs() * mask).sum()) / (all_sum(mask.sum()) + EPS)
 
 
 def dice_loss_per_sample(pred, gt, mask):

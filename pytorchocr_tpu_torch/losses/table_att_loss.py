@@ -7,10 +7,17 @@ a / classes); the masked MSE or smooth-L1 loc loss summed over every
 element, over `sum(mask) + 1e-12`; and with `aux_count_weight` > 0 the
 row / column count cross-entropies against `batch[4]` / `batch[5]`. Float32
 (float64 stays: the card's float32 step is held to a float64 one).
+
+Across ranks (parallel/mesh.py) the loc loss's sum and its mask count are
+the global batch's (:56-61, a global sum over a global count in the JAX
+step); the cross-entropies are per-token and per-table means, which the
+step's gradient average makes global over equal shards.
 """
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.functional import all_sum
 
 
 def _f(x):
@@ -58,7 +65,7 @@ class SLALoss:
             loc_loss = torch.where(ad < 1.0, 0.5 * diff ** 2, ad - 0.5).sum()
         else:
             loc_loss = (diff ** 2).sum()
-        loc_loss = loc_loss * self.loc_weight / (mask.sum() + self.eps)
+        loc_loss = all_sum(loc_loss) * self.loc_weight / (all_sum(mask.sum()) + self.eps)
 
         total = structure_loss + loc_loss
         out = {"loss": total, "structure_loss": structure_loss, "loc_loss": loc_loss}

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import quant
+from ..parallel import functional
 
 
 def make_divisible(v, divisor=8, min_value=None):
@@ -61,11 +62,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     backward (torch._batch_norm_impl_index is the op F.batch_norm calls), so
     no reduction runs twice. That variance is the stable one; flax's default
     E[x^2] - E[x]^2 in float32 (use_fast_variance) differs from it only by
-    the digits it loses where |mean| >> std. Eval mode is nn.BatchNorm2d's."""
+    the digits it loses where |mean| >> std. Eval mode is nn.BatchNorm2d's.
+
+    Under a mesh with several ranks in its data group the statistics are
+    the global batch's, as the JAX step's are (parallel/mesh.py:8-11 of
+    the JAX package: the jitted step sees the whole batch): the sums of x
+    and then of (x - mean)^2 go through parallel.functional.all_sum, which
+    reduces by all-reduce alone (gloo has no all-gather of CUDA tensors),
+    keeps the two-pass variance and carries the gradient across ranks."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if functional.data_world() > 1:
+            return self._global_batch(x)
         y, mean, invstd, _, _ = torch._batch_norm_impl_index(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps,
             torch.backends.cudnn.enabled)
@@ -76,6 +86,25 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch(self, x):
+        xf = x if x.dtype == torch.float64 else x.float()
+        dims = (0, 2, 3)
+        # the sums of x and the element count in one all-reduce
+        local = torch.cat([xf.sum(dims), xf.new_full((1,), float(x.numel() // x.shape[1]))])
+        sums = functional.all_sum(local)
+        count = sums[-1]
+        mean = sums[:-1] / count
+        centred = xf - mean[None, :, None, None]
+        var = functional.all_sum((centred * centred).sum(dims)) / count
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * scale[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def _pair(v):

@@ -15,7 +15,9 @@ JAX coins come from `fold_in(PRNGKey(17), step)`, split per scan step
 (trainer.py:159), a stream torch cannot reproduce: here the train step
 hands the forward a torch.Generator on the model's device seeded from (17,
 step) (trainer.sample_generator), and the (N, steps) coins are drawn from it
-once a forward. A forward without a generator, and eval, feed as p = 0
+once a forward. Across ranks (parallel/mesh.py) each rank draws the coins
+of the global batch, (N x data world, steps), and keeps its own rows, so N
+ranks feed what one rank feeds the global batch. A forward without a generator, and eval, feed as p = 0
 does, as the JAX head does without a "sample" rng. Softmax is applied at
 eval only.
 
@@ -39,6 +41,8 @@ row_head, col_head, init_state}`.
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...parallel.mesh import data_shard
 
 __all__ = ["SLAHead", "GRUCell", "LSTMCell"]
 
@@ -209,8 +213,10 @@ class SLAHead(nn.Module):
         if teacher:
             tokens = targets[1][:, :steps].long()
             if self.scheduled_sampling_p > 0.0 and generator is not None:
-                coins = torch.rand((n, steps), generator=generator,
-                                   device=generator.device) < self.scheduled_sampling_p
+                shard, shards = data_shard()
+                coins = torch.rand((n * shards, steps), generator=generator,
+                                   device=generator.device)[shard * n:(shard + 1) * n]
+                coins = coins < self.scheduled_sampling_p
         own = teacher and coins is not None
         prev = torch.zeros((n,), dtype=torch.long, device=x.device)
         structures, locs = [], []

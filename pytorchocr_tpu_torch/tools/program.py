@@ -3,13 +3,25 @@
 
 The loop, the eval gate (`eval_epoch_step`), the HighestAcc / FixedEpochStep
 checkpoints, the median-smoothed stats and the rank-0-only side effects are
-the JAX loop's. A train step is trainer.make_train_step on one card; the
-losses stay on the card and are read only at log steps, as the JAX loop
-fetches them. `Global.cal_metric_during_train` (rec, cls and table) runs the eval
+the JAX loop's. A train step is trainer.make_train_step; the losses stay
+on the card and are read only at log steps, as the JAX loop fetches them.
+`Global.cal_metric_during_train` (rec, cls and table) runs the eval
 forward on each train batch after its step, then the post process and the
 metric, every step, as the JAX loop does (:605-613; the table post process
 takes the whole batch, the others its labels); the post process reads the
 predictions on the host, so that step waits for the card.
+
+Data parallel: under `python -m torch.distributed.run --nproc_per_node N`
+with `Global.distributed: True`, `preprocess` initialises the process group
+(parallel/mesh.py; `Global.dist_backend`, nccl on cards and gloo on the
+CPU by default, and `Global.ranks_per_card`, which puts several ranks on
+one card over gloo) before the logger, so rank 0 alone logs, writes the
+config, TensorBoard and checkpoints. Each rank loads `batch_size_per_card`
+samples of its shard, so the global batch is N times that, as in the JAX
+multi-process contract. Rank 0 evaluates the whole eval set and broadcasts
+the metric, so every rank takes the same best-model decision; a save is
+followed by a barrier. The report is per rank, with `world` and the global
+samples. Without the torchrun environment one process trains, as before.
 
 Not carried over (ROADMAP.md A.15): `steps_per_dispatch`, the bf16 "wire
 dtype" (the port sends uint8 images and float32 label maps to the card),
@@ -26,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..trainer import (batch_to_device, build_input_transform, make_eval_step,
                        make_train_step, set_matmul_precision)
 from ..utils.config import ArgsParser, load_config, merge_config, save_config
@@ -92,15 +105,30 @@ def extract_device_normalize(config):
     return specs
 
 
-def select_device(global_config):
-    """Global.use_gpu: True -> the first card, and no card raises; False ->
-    the CPU."""
-    if not global_config.get("use_gpu", True):
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("Global.use_gpu is True but torch.cuda.is_available() is False; "
-                           "pass -o Global.use_gpu=False to run on the CPU")
-    return torch.device("cuda:0")
+def select_device(global_config, local_rank=0):
+    """Global.use_gpu: True -> card `local_rank // Global.ranks_per_card`
+    (the first card in one process), and no card raises; False -> the
+    CPU."""
+    return mesh.select_device(global_config.get("use_gpu", True), local_rank,
+                              global_config.get("ranks_per_card", 1))
+
+
+def init_distributed(global_config):
+    """The device, and the process group when the torchrun environment is
+    present and Global.distributed is true (else one process: the Mesh is
+    None). Sets Global.distributed to whether a group is up."""
+    env = mesh.torchrun_env()
+    wanted = global_config.get("distributed", False) and env is not None
+    device = select_device(global_config, env[2] if wanted else 0)
+    if wanted:
+        backend = global_config.get("dist_backend") or (
+            "nccl" if device.type == "cuda" else "gloo")
+        if backend == "nccl" and int(global_config.get("ranks_per_card", 1)) > 1:
+            raise ValueError("NCCL refuses two ranks on one card: Global.ranks_per_card > 1 "
+                             "takes Global.dist_backend=gloo")
+        mesh.setup(backend, device)
+    global_config["distributed"] = wanted
+    return device, env
 
 
 def preprocess(is_train=False, argv=None):
@@ -112,12 +140,21 @@ def preprocess(is_train=False, argv=None):
     merge_config(config, args.opt)
     global_config = config["Global"]
     global_config["_config_path"] = args.config
+    asked = bool(global_config.get("distributed", False))
+    # training ranks join their group before the logger, which asks the rank;
+    # tools.eval stays one process
+    if is_train:
+        device, env = init_distributed(global_config)
+    else:
+        device, env = select_device(global_config), None
+        global_config["distributed"] = False
 
     log_file = None
     if is_train:
         save_model_dir = global_config["save_model_dir"]
         os.makedirs(save_model_dir, exist_ok=True)
-        save_config(config, os.path.join(save_model_dir, "config.yml"))
+        if process_rank() == 0:
+            save_config(config, os.path.join(save_model_dir, "config.yml"))
         log_file = "{}/train.log".format(save_model_dir)
     logger = get_logger(name="root", log_file=log_file)
 
@@ -128,15 +165,14 @@ def preprocess(is_train=False, argv=None):
     if global_config.get("device_normalize", False):
         extract_device_normalize(config)
 
-    device = select_device(global_config)
-    if global_config.get("distributed", False):
-        import torch.distributed as dist
-
-        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-        if world == 1:
-            logger.info("Global.distributed: True with one process: training runs as a single "
-                        "process (multi-GPU data parallel is ROADMAP.md A.8)")
-        global_config["distributed"] = world > 1
+    grid = mesh.get_mesh()
+    if is_train and asked and grid is None:
+        logger.info("Global.distributed: True without the torchrun environment (RANK, "
+                    "WORLD_SIZE): one process trains; `python -m torch.distributed.run "
+                    "--nproc_per_node N -m pytorchocr_tpu_torch.tools.train` trains on N ranks")
+    elif env is not None and grid is None:
+        logger.info("Global.distributed: False under torchrun: rank %d trains alone on the "
+                    "whole data", env[0])
 
     tsb_writer = None
     if global_config.get("use_tensorboard", False) and process_rank() == 0:
@@ -147,10 +183,13 @@ def preprocess(is_train=False, argv=None):
     set_random_seed(global_config.get("seed", 2022))
     set_matmul_precision()
     print_dict(config, logger)
-    logger.info("train with torch {} on {} ({}); TF32 off for cuDNN and cuBLAS; {}".format(
-        torch.__version__, device,
-        torch.cuda.get_device_name(device) if device.type == "cuda" else "host",
-        "bf16 autocast (use_amp)" if global_config.get("use_amp") else "float32"))
+    logger.info("train with torch {} on {} ({}); rank {} of {}{}; TF32 off for cuDNN and "
+                "cuBLAS; {}".format(
+                    torch.__version__, device,
+                    torch.cuda.get_device_name(device) if device.type == "cuda" else "host",
+                    grid.rank if grid else 0, grid.world if grid else 1,
+                    " (%s)" % grid.backend if grid else "",
+                    "bf16 autocast (use_amp)" if global_config.get("use_amp") else "float32"))
     return config, device, logger, tsb_writer
 
 
@@ -158,7 +197,9 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
           global_state, post_process_class, eval_class, logger, tsb_writer=None):
     """The epoch loop with eval and checkpoints. Returns a report: steps,
     samples, the wall, loader-wait, copy and per-step metric seconds of the
-    train iterations, and every step's loss (one sync at the end). From
+    train iterations of this rank, every step's loss (the global batch's;
+    one sync at the end), the best metric, the rank and the data world
+    (`world`: samples times world is the global count). From
     program.py:291."""
     global_config = config["Global"]
     cal_metric_during_train = global_config.get("cal_metric_during_train", False)
@@ -182,11 +223,11 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
     start_eval_step = 0
     if isinstance(eval_epoch_step, (list, tuple)) and len(eval_epoch_step) >= 2:
         start_eval_step, eval_epoch_step = eval_epoch_step[0], eval_epoch_step[1]
+        if valid_dataloader is None or len(valid_dataloader) == 0:
+            logger.info("No Images in eval dataset, evaluation during training will be "
+                        "disabled")
+            start_eval_step = 1e111
         if rank0:
-            if valid_dataloader is None or len(valid_dataloader) == 0:
-                logger.info("No Images in eval dataset, evaluation during training will be "
-                            "disabled")
-                start_eval_step = 1e111
             logger.info("During the training process, after the {}th epoch, an evaluation is "
                         "run every {} epochs".format(start_eval_step, eval_epoch_step))
 
@@ -222,7 +263,14 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
     # batches, which also wait for the step before them on the stream;
     # metric_s: cal_metric_during_train's eval forward, post process and
     # metric, which wait for the step
-    report = dict(steps=0, samples=0, wall_s=0.0, reader_s=0.0, copy_s=0.0, metric_s=0.0)
+    grid = mesh.get_mesh()
+    report = dict(steps=0, samples=0, wall_s=0.0, reader_s=0.0, copy_s=0.0, metric_s=0.0,
+                  rank=grid.rank if grid else 0, world=grid.data_world if grid else 1)
+
+    def save(prefix, is_best=False):
+        save_model(model, optimizer, state(epoch), save_model_dir, logger, is_best=is_best,
+                   prefix=prefix)
+        mesh.barrier()  # rank 0 wrote it: no rank goes on before it is whole
 
     def drain_loss_window():
         for losses_dev, lr_val in loss_window:
@@ -283,10 +331,11 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
             torch.cuda.synchronize(device)
         report["wall_s"] += time.time() - epoch_start
 
-        if rank0 and epoch + 1 > start_eval_step and \
-                (epoch - start_eval_step + 1) % eval_epoch_step == 0:
-            cur_metric = evaluate(eval_step, valid_dataloader, post_process_class, eval_class,
-                                  model_type, device)
+        if epoch + 1 > start_eval_step and (epoch - start_eval_step + 1) % eval_epoch_step == 0:
+            # rank 0 evaluates the whole (unsharded) eval set; every rank takes its metric
+            cur_metric = mesh.broadcast_object(
+                evaluate(eval_step, valid_dataloader, post_process_class, eval_class,
+                         model_type, device) if rank0 else None)
             logger.info("cur metric, {}".format(
                 ", ".join("{}: {}".format(k, v) for k, v in cur_metric.items())))
             if tsb_writer is not None:
@@ -296,25 +345,29 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
             if cur_metric[main_indicator] >= best_model_dict[main_indicator]:
                 best_model_dict.update(cur_metric)
                 best_model_dict["best_model_epoch"] = epoch + 1
-                save_model(model, optimizer, state(epoch), save_model_dir, logger,
-                           is_best=True, prefix="best_accuracy")
+                save("best_accuracy", is_best=True)
             logger.info("best metric, {}".format(
                 ", ".join("{}: {}".format(k, v) for k, v in best_model_dict.items())))
             if tsb_writer is not None:
                 tsb_writer.add_scalar("EVAL/best_{}".format(main_indicator),
                                       best_model_dict[main_indicator], global_step)
 
-        if rank0 and ((epoch + 1) % int(global_config.get("save_latest_epoch_step", 1)) == 0
-                      or epoch + 1 == epoch_num):
-            save_model(model, optimizer, state(epoch), save_model_dir, logger,
-                       is_best=False, prefix="latest")
+        if ((epoch + 1) % int(global_config.get("save_latest_epoch_step", 1)) == 0
+                or epoch + 1 == epoch_num):
+            save("latest")
         if ckpt_save_type == "FixedEpochStep" and (epoch + 1) % save_epoch_step == 0:
-            save_model(model, optimizer, state(epoch), save_model_dir, logger,
-                       is_best=False, prefix="epoch_{}".format(epoch))
+            save("epoch_{}".format(epoch))
 
     if rank0:
         logger.info("best metric, {}".format(
             ", ".join("{}: {}".format(k, v) for k, v in best_model_dict.items())))
+        if grid is not None:
+            wall = max(report["wall_s"], 1e-9)
+            logger.info("rank 0 of {} ({}, data world {}): {} steps, {:.3f} steps/s, {:.2f} "
+                        "samples/s on this rank, {:.2f} global, loader wait {:.1%}".format(
+                            grid.world, grid.backend, grid.data_world, report["steps"],
+                            report["steps"] / wall, report["samples"] / wall,
+                            report["samples"] * grid.data_world / wall, report["reader_s"] / wall))
         if tsb_writer is not None:
             tsb_writer.close()
     report["losses"] = torch.stack(history).float().cpu().tolist() if history else []

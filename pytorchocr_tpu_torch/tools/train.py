@@ -9,7 +9,11 @@ Usage:
   comes from -o Architecture.Models.Teacher.pretrained=<checkpoint dir>)
 
 Runs on the first card; `-o Global.use_gpu=False` runs on the CPU, and
-`use_gpu: True` without a card raises. The model starts from the JAX
+`use_gpu: True` without a card raises. Under `python -m torch.distributed.run
+--nproc_per_node N -m pytorchocr_tpu_torch.tools.train ...` it trains on N
+ranks, one process each, on the global batch (tools/program.py,
+parallel/); every rank builds the same seeded model, unwrapped, so its
+checkpoints load in one process. The model starts from the JAX
 package's initialisers (utils/seeded.py:seeded_init_, seeded by
 Global.seed), then the backbone's ImageNet weights, then each distillation
 model's `pretrained` checkpoint, then a resume (Global.checkpoints) or

@@ -17,12 +17,23 @@ matmuls, so float32 training computes in float32 as the CPU does; under
 `use_amp` the convolutions and matmuls run in bf16 and the setting touches
 only the float32 remainder.
 
+Across ranks (parallel/mesh.py) the step is the JAX step on the global
+batch: BN statistics and the DB / table losses' sums are global
+(parallel/functional.py), the gradients are averaged over the data group
+after backward (one all-reduce), and every rank applies the same update,
+so the ranks' parameters stay bit-identical; the returned losses are the
+global batch's. The model is not wrapped (no DistributedDataParallel): a
+frozen teacher has no gradient to reduce, STAR-Net's freeze zeroes the
+averaged gradients, and checkpoints carry the model's own names.
+
 Not carried over (ROADMAP.md A.15): `make_multi_train_step` /
 `steps_per_dispatch`, `remat` (jax.checkpoint), `compiler_options`.
 """
 
 import numpy as np
 import torch
+
+from .parallel import functional
 
 
 def set_matmul_precision():
@@ -145,9 +156,12 @@ def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, 
     (device tensors, not synced). The step's generator (`sample_generator`,
     seeded by the optimizer's count before the update, the JAX `state.step`)
     goes to a model whose head takes one. From trainer.py:137."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
     device = next(model.parameters()).device
     device_type = device.type
     generator = takes_generator(model)
+    # float32 losses, as JAX casts them; a float64 model (a reference step) keeps float64
+    loss_dtype = torch.float64 if next(model.parameters()).dtype == torch.float64 else torch.float32
 
     def step(batch):
         model.train()
@@ -159,13 +173,14 @@ def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, 
             kw["generator"] = sample_generator(device, optimizer.param_groups[0]["count"])
         with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
             preds = model(images.permute(0, 3, 1, 2), data=batch, **kw)  # NCHW view
-        losses = loss_fn(float_preds(preds), batch)
+        losses = loss_fn(float_preds(preds, loss_dtype), batch)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        functional.average_gradients(params)
         kept = mask_frozen_(model, optimizer.param_groups[0]["count"], frozen) if frozen else ()
         optimizer.step()
         restore_frozen_(kept)
-        return {k: v.detach() for k, v in losses.items()}
+        return functional.average_losses({k: v.detach() for k, v in losses.items()})
 
     return step
 

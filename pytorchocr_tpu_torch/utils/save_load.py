@@ -9,6 +9,11 @@ and the step) and `global_state.json` ({start_epoch, best_model,
 global_step}), the JAX checkpoint's two parts. It is written into
 `<prefix>.staging` and swapped in (`_swap_dirs`), so a crash mid-save leaves
 the previous `<prefix>` or `<prefix>.old` whole, never a half-written one.
+Across ranks (tools/program.py under torchrun) rank 0 alone writes
+(`save_model` returns at once on the others, and the training loop's
+barrier after each save holds them until the directory is whole); every
+rank reads a checkpoint to resume, and a checkpoint written by N ranks
+loads in one process (the model is not wrapped, so its names are its own).
 `pretrained_model` and the backbone's `ckpt_path` load parameters only, by
 name and shape, from a port checkpoint directory or a `.pt` state_dict (the
 JAX package reads orbax directories, which the port cannot).

@@ -67,7 +67,7 @@ def test_train_cli_trains_evaluates_and_checkpoints(trained):
         assert json.loads((out / prefix / "global_state.json").read_text())["global_step"] == 2
     assert (out / "config.yml").is_file() and (out / "train.log").is_file()
     assert "cur metric, precision:" in trained["log"]
-    assert "Global.distributed: True with one process" in trained["log"]
+    assert "Global.distributed: True without the torchrun environment" in trained["log"]
     assert "TF32 off" in trained["log"]
 
 
