@@ -191,6 +191,21 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      published (two CRNNs, CTC + DML): the float32 step, the round trip,
      tools.train.run and tools.eval.run equal to it, DistillationMetric
      picking the better student; no kernel on that path.
+ 20. training across ranks (its note above DP_F32_BS), its processes
+     started before phase 19 and run beside it;
+ 21. the rest of serving. (a) int8 PTQ on the zoo's detectors (ZOO_INT8:
+     the MobileNetV3s, ShuffleNetV2, RepVGG-A0 in train and deploy form,
+     DB++; phase 16's seeded models): float32 int8 on the card against the
+     CPU's int8 run on 2 pages in phase 8's form (calibrations, the int8
+     payloads' elements apart, boxes), then the bf16 main path through
+     OCRer(det_quant=True) with phase 5's CRNN and its Deter, every int8
+     conv (both branches), requantize and K1 launch of one forward held to
+     the plain version, pages/s, the det forward against the float one,
+     and the direct branch's depthwise shapes timed against cuDNN's bf16
+     conv; (b) phase 11's DB-ResNet18 exported with torch.export (float32
+     and bf16), reloaded from its .pt2 and held to the Runner's forward;
+     (c) run_ocr's res_*.jpg against its res_*.txt, and a Runner over two
+     replicas on the card against one.
 Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
@@ -200,9 +215,17 @@ the contract {"ok": true, "device":
 {...}}. Without a card, or outside a checkout, it exits non-zero and prints
 no result.
 
-The phases run in the order 1-4, 11-15, 17-19, 5-10, 16 (run_phases: the
-trainings' card-bound loops leave the host to the CPU reference work of the
-serving phases). Each phase's time is printed beside its budget
+The phases run in the order 1-4, 11-15, 17, 18, 20 with 19 beside it, 5-10,
+16, 21 (run_phases: the trainings' card-bound loops leave the host to the
+CPU reference work of the serving phases; nvcc starts on every kernel
+source at the top of the run, and each phase waits only for the kernels it
+launches). The convergence checks of phases 12, 13, 18 and 19 (a fixed batch
+trained until it reads back: host-bound loops that leave the card mostly
+idle) run in a side process of this script, one after another, beside the
+rest of the run, which waits for them at its end; the timed sections that
+ran beside that process's card work, or beside phase 20's ranks, are named
+after their phase ("beside"), and phases 9 and 21 wait for it to be idle
+before their kernel timings. Each phase's time is printed beside its budget
 (PHASE_BUDGET_S); a phase past it says so and does not fail. The CPU reference work runs in a second
 process of this script (CpuWorker), stopped while a timed section runs;
 the float32-step checks wait for their float64 and CPU float32 steps at the
@@ -250,26 +273,30 @@ def card_line():
 
 
 class CpuWorker:
-    """A second process of this script (`--cpu-worker DIR`, niced to 19),
-    started at the top of the run, that does the CPU reference work off the
-    card's critical path: the seeded models and the CPU float32 runs that
-    phases 5-8, 10 and 16 hold the card to, the drawn lines of phases 12-13,
-    and the float64 and CPU float32 train steps of the float32-step checks.
+    """A process of this script (`--cpu-worker DIR THREADS`, niced to 19),
+    started at the top of the run, that does CPU reference work off the
+    card's critical path: in WORKER the seeded models and the CPU float32
+    and int8 runs that phases 5-8, 10, 16 and 21 hold the card to and the
+    drawn lines of phases 12-13; in STEP_WORKER the float64 and CPU float32
+    train steps of the float32-step checks.
     Jobs are (function of this script, picklable arguments) files in DIR,
     run in the order submitted; each result comes back as a file. While a
     timed section runs (`paused`: the kernels' timings, every
     tools.train.run and tools.eval.run, the loaders' and the losses'
     timings, the profiled train loops, the served timings), the worker is
-    stopped (SIGSTOP). The serving timings of phases 5-10 and 16 (`beside`:
-    pages/s, stage times, card busy) and the overfit loops (phases 12, 13,
-    17, 18, 19) may run beside it, and the run says so where they did."""
+    stopped (SIGSTOP). The serving timings of phases 5-10, 16 and 21
+    (`beside`: pages/s, stage times, card busy) may run beside it, and the
+    run says so where they did. With `side` (`--side-worker DIR`, not
+    niced, never stopped) the same machinery is the side process, which
+    runs card work: the convergence checks (SIDE, beside_run)."""
 
-    def __init__(self, dirname):
+    def __init__(self, dirname, name, side=False, threads=4):
         os.makedirs(dirname, exist_ok=True)
         self.dir, self.n, self.depth, self.stopped_s, self.waited_s = dirname, 0, 0, 0.0, 0.0
+        self.name = name
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cpu-worker", dirname],
-            preexec_fn=lambda: os.nice(19))
+            [sys.executable, os.path.abspath(__file__), "--side-worker" if side else "--cpu-worker",
+             dirname, str(threads)], preexec_fn=None if side else lambda: os.nice(19))
 
     def _path(self, kind, n):
         return os.path.join(self.dir, "%s_%04d.pt" % (kind, n))
@@ -286,17 +313,17 @@ class CpuWorker:
     def result(self, n):
         import torch
 
-        check(self.depth == 0, "a CPU reference result was asked for inside a timed section")
+        check(self.depth == 0, "a result of %s was asked for inside a timed section" % self.name)
         path = self._path("out", n)
         t0 = time.perf_counter()
         while not os.path.exists(path):
-            check(self.proc.poll() is None, "the CPU reference process ended (exit %s) before "
-                  "job %d" % (self.proc.returncode, n))
+            check(self.proc.poll() is None, "%s ended (exit %s) before job %d"
+                  % (self.name, self.proc.returncode, n))
             time.sleep(0.02)
         self.waited_s += time.perf_counter() - t0
         out = torch.load(path, weights_only=False)
         os.remove(path)
-        check("error" not in out, "CPU reference job %d failed:\n%s" % (n, out.get("error")))
+        check("error" not in out, "%s's job %d failed:\n%s" % (self.name, n, out.get("error")))
         return out["result"]
 
     def pause(self):
@@ -353,11 +380,24 @@ class Earlier:
 
 
 WORKER = None  # the run's CpuWorker; None runs every job in place (--only, rehearsals)
+# a second niced CPU reference process for the float64 and CPU float32 train
+# steps of the float32-step checks (STEP_JOBS), so that they run beside the
+# serving references instead of after them; None sends them to WORKER
+STEP_WORKER = None
+STEP_JOBS = ("f64_steps", "float64_selections")
+# the run's side process (a CpuWorker with `side`, not niced, never stopped):
+# the convergence checks of phases 12, 13, 18 and 19, host-bound loops of
+# launches that leave the card mostly idle, run there one after another,
+# beside the rest of the run (beside_run); None runs them in place
+SIDE = None
+IN_SIDE = False  # this process is the side process
 
 
 def cpu_job(fn, *args, **kwargs):
-    """`fn(*args, **kwargs)` in the CPU reference process, or here and now
-    without one. Returns a Pending."""
+    """`fn(*args, **kwargs)` in a CPU reference process (STEP_WORKER for
+    STEP_JOBS), or here and now without one. Returns a Pending."""
+    if STEP_WORKER is not None and fn.__name__ in STEP_JOBS:
+        return STEP_WORKER.submit(fn, *args, **kwargs)
     if WORKER is not None:
         return WORKER.submit(fn, *args, **kwargs)
 
@@ -396,15 +436,23 @@ def run_deferred():
 
 
 class paused:
-    """A timed section: the CPU reference process is stopped inside it."""
+    """A timed section: the CPU reference processes are stopped inside it.
+    The run's other card work (card_sharers) is not: the section is named
+    (`name`, else its caller's) in its phase's note when that was running."""
+
+    def __init__(self, name=None):
+        self.name = name or sys._getframe(1).f_code.co_name
 
     def __enter__(self):
-        if WORKER is not None:
-            WORKER.pause()
+        note_beside(self.name, card_sharers())
+        for worker in (WORKER, STEP_WORKER):
+            if worker is not None:
+                worker.pause()
 
     def __exit__(self, *exc):
-        if WORKER is not None:
-            WORKER.resume()
+        for worker in (WORKER, STEP_WORKER):
+            if worker is not None:
+                worker.resume()
 
 
 def quiet(fn):
@@ -413,45 +461,95 @@ def quiet(fn):
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        with paused():
+        with paused(fn.__name__):
             return fn(*args, **kwargs)
 
     return wrapped
 
 
-OVERLAPPED = set()  # the timed helpers that ran beside a busy CPU reference process
+# the timed sections that ran beside other work of the run: {section: {who}}
+OVERLAPPED = {}
+DP_LIVE = False  # phase 20's rank processes are running (its start to its end)
+
+
+def note_beside(name, who):
+    for w in who:
+        OVERLAPPED.setdefault(name, set()).add(w)
 
 
 def beside(fn):
     """A timed serving section (pages/s, stage times, card busy) that the
     niced CPU reference process may run beside: run_phases names it after
-    its phase when the process was busy then."""
+    its phase when the process, or other card work, was running then."""
     import functools
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        if WORKER is not None and WORKER.depth == 0 and WORKER.busy():
-            OVERLAPPED.add(fn.__name__)
+        note_beside(fn.__name__, sharing())
         return fn(*args, **kwargs)
 
     return wrapped
 
 
 def beside_worker():
-    """A note for a timed loop that the CPU reference process may run beside."""
-    return " (the niced CPU reference process ran beside it)" if (
-        WORKER is not None and WORKER.busy()) else ""
+    """A note for a timed loop that the CPU reference process, or the rest
+    of the run, may run beside."""
+    if IN_SIDE:
+        return " (in the side process, beside the run's other phases)"
+    who = sharing()
+    return " (%s ran beside it)" % " and ".join(who) if who else ""
 
 
-def cpu_worker_main(dirname):
-    """The CPU reference process: run the jobs of DIR in order until told
-    to stop or the parent goes."""
+def workers_busy():
+    """Whether a CPU reference process that is not stopped has a job."""
+    return any(w is not None and w.depth == 0 and w.busy() for w in (WORKER, STEP_WORKER))
+
+
+def card_sharers():
+    """The run's other processes that may use the card now: the side process
+    while it has a job, phase 20's ranks while they run."""
+    return ((["the side process's card work"] if SIDE is not None and SIDE.busy() else [])
+            + (["phase 20's ranks"] if DP_LIVE else []))
+
+
+def sharing():
+    """Who runs beside a timed section that starts now."""
+    return (["the niced CPU reference processes"] if workers_busy() else []) + card_sharers()
+
+
+def side_idle(tag):
+    """Wait until the side process has run every job it was given (their
+    results are still read at the end), so that the kernel timings that
+    follow have the card to themselves."""
+    if SIDE is None:
+        return
+    t0 = time.perf_counter()
+    while SIDE.busy():
+        check(SIDE.proc.poll() is None, "the side process ended (exit %s)" % SIDE.proc.returncode)
+        time.sleep(0.05)
+    say(tag, "waited %.1f s for the side process's card work before the kernel timings"
+        % (time.perf_counter() - t0))
+
+
+def beside_run(fn, *args):
+    """`fn(*args)`, a convergence check, in the side process (SIDE), after
+    the checks submitted there before it; the run waits for it, and fails
+    with it, at the end (later). Without a side process, here and now."""
+    if SIDE is None:
+        fn(*args)
+    else:
+        later(SIDE.submit(fn, *args).result)
+
+
+def cpu_worker_main(dirname, threads):
+    """A CPU reference process (or the side process): run the jobs of DIR
+    in order, on `threads` threads, until told to stop or the parent goes."""
     import traceback
 
     import torch
 
     sys.path.insert(0, REPO)
-    torch.set_num_threads(6)  # the card's host work keeps two cores
+    torch.set_num_threads(threads)
     parent, done, n = os.getppid(), {}, 0
     while True:
         path = os.path.join(dirname, "job_%04d.pt" % n)
@@ -672,18 +770,23 @@ def igmma_count(lib):
     return sum("IGMMA" in ln for ln in out.stdout.splitlines())
 
 
-def phase_kernels(dev, card, int32_rate):
-    import numpy as np
-    import torch
+READY = set()  # the kernels whose builds kernels_ready has reported
 
+
+def kernels_ready(names):
+    """Wait for the builds of `names` (nvcc started on every source at the
+    top of the run, run_phases) and report each once: nvcc's time, ptxas's
+    registers and spills; the int8 conv's SASS must hold wgmma. A build
+    that fails raises."""
     from pytorchocr_tpu_torch import _kernels
-    from pytorchocr_tpu_torch.ops import runmax
 
     t0 = time.perf_counter()
-    names = list(_kernels.SIGNATURES)
-    _kernels.build(names)  # one nvcc per source, all started together
+    libs = _kernels.build(names)
     for name in names:
         _kernels.load(name)
+        if name in READY:
+            continue
+        READY.add(name)
         if name in _kernels.build_log:
             secs, log = _kernels.build_log[name]
             regs = " | ".join(ln.split(":", 1)[-1].strip() for ln in log.splitlines()
@@ -699,11 +802,24 @@ def phase_kernels(dev, card, int32_rate):
                     ln.strip() for ln in log.splitlines() if "serializ" in ln)))
         else:
             say("build", "%s.cu loaded from an earlier build" % name)
-    igmma = igmma_count(_kernels.build(["int8_conv"])["int8_conv"])
-    if igmma is not None:
-        check(igmma > 0, "the int8 conv library holds no IGMMA instruction: no wgmma path built")
-        say("build", "int8_conv: %d IGMMA (wgmma s8) instructions in its SASS (cuobjdump)" % igmma)
-    say("build", "all kernels ready in %.2f s" % (time.perf_counter() - t0))
+        if name == "int8_conv":
+            igmma = igmma_count(libs[name])
+            if igmma is not None:
+                check(igmma > 0, "the int8 conv library holds no IGMMA instruction: no wgmma "
+                      "path built")
+                say("build", "int8_conv: %d IGMMA (wgmma s8) instructions in its SASS "
+                    "(cuobjdump)" % igmma)
+    say("build", "%s ready; waited %.2f s for them here" % (", ".join(names),
+                                                           time.perf_counter() - t0))
+
+
+def phase_kernels(dev, card, int32_rate):
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.ops import runmax
+
+    kernels_ready(["runmax", "propagate"])
 
     rng = np.random.RandomState(SEED)
     cases = {
@@ -1227,6 +1343,12 @@ def submit_references(tmp, pages, wanted):
         if name in wanted:
             args = tuple(after(refs["slice"], "cpu") if a == "slice rows" else a for a in args)
             refs[name] = cpu_job(fn, *args, **kwargs)
+    cfgs = dict({tag: cfg for tag, cfg, _ in ZOO_DET}, dbpp=DBPP_CFG)
+    for tag, src in ZOO_INT8:  # phase 21's CPU int8 runs of phase 16's seeded models
+        if "int8 " + tag in wanted:
+            fold = after(refs[src], "fold") if tag.endswith("deploy") else None
+            refs["int8 " + tag] = cpu_job(ref_int8_det, cfgs[src], after(refs[src], "det_pt"),
+                                          pages[:ZOO_CPU_PAGES], fold=fold)
     return refs
 
 
@@ -1462,29 +1584,60 @@ def _absmax_state(model):
 
 
 INT8_STAGES = ("backbone.stem", "backbone.layer1_block1", "backbone.layer2_block1",
-               "backbone.layer3_block1", "backbone.layer4_block1", "neck")
+               "backbone.layer3_block1", "backbone.layer4_block1", "neck", "head.binarize.conv1")
 
 
-def _int8_payloads(deter, pages):
-    """The int8 payloads of INT8_STAGES (the stem, each stage's last block,
-    the FPN's fused map) over `pages`, as int32 on the CPU."""
+# the int8 input of a forward's second int8 conv, an early payload on every
+# int8 model: on most, the first that an int8 conv's float epilogue made
+# (the first conv's is the image)
+INT8_CONV2_INPUT = "int8 conv 2's input"
+
+
+@contextlib.contextmanager
+def int8_payloads(model):
+    """Inside the block, the int8 payloads, as int32 on the CPU, of the
+    INT8_STAGES modules of `model` whose outputs are QTensors (a ResNet's
+    stem and each stage's last block, the DB FPN's fused map, the DB head's
+    conv1) and INT8_CONV2_INPUT, from the one forward that runs there, in
+    the forward's order."""
     import torch
 
+    from pytorchocr_tpu_torch.ops.quant import QTensor
+
+    from pytorchocr_tpu_torch.ops import int8_conv as conv_mod
+
     seen, hooks = {}, []
-    mods = dict(deter.runner.model.named_modules())
+    mods = dict(model.named_modules())
+    original, calls = conv_mod.int8_conv, [0]
 
     def keep(name):
         def hook(mod, inp, out):  # returns None: the module's output stays as it is
-            seen[name] = out.q.to(torch.int32).cpu()
+            if isinstance(out, QTensor):
+                seen[name] = out.q.to(torch.int32).cpu()
         return hook
 
+    def conv(xq, *args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 2:
+            seen[INT8_CONV2_INPUT] = xq.to(torch.int32).cpu()
+        return original(xq, *args, **kwargs)
+
     for name in INT8_STAGES:
-        hooks.append(mods[name].register_forward_hook(keep(name)))
+        if name in mods:
+            hooks.append(mods[name].register_forward_hook(keep(name)))
+    conv_mod.int8_conv = conv
     try:
-        deter.runner(_det_batch(deter, pages)[0])
+        yield seen
     finally:
+        conv_mod.int8_conv = original
         for h in hooks:
             h.remove()
+
+
+def _int8_payloads(deter, pages):
+    """int8_payloads of one forward of `deter`'s model over `pages`."""
+    with int8_payloads(deter.runner.model) as seen:
+        deter.runner(_det_batch(deter, pages)[0])
     return seen
 
 
@@ -1508,6 +1661,7 @@ def phase_int8_slice(dev, card, pages, db, ref):
     from pytorchocr_tpu_torch.ops import int8_conv, requant, runmax
     from pytorchocr_tpu_torch.utils.weights import load_absmax
 
+    kernels_ready(["int8_conv", "requant"])
     det_cfg, rec_cfg, reps = DET_CFG, REC_CFG, 1
     args = (det_cfg, db["det_pt"], rec_cfg, db["rec_pt"])
     ref = ref.result()
@@ -1529,8 +1683,10 @@ def phase_int8_slice(dev, card, pages, db, ref):
         load_absmax(ocr32.deter.runner.model, cpu_state)  # the CPU's scales from here on
         f32 = flat(ocr32.run_many(pages))
         q_cpu, q_gpu = ref["payloads"], _int8_payloads(ocr32.deter, pages)
+        check(list(q_cpu) == list(q_gpu) and "backbone.stem" in q_gpu,
+              "int8 payloads %s on the card, %s on the CPU" % (list(q_gpu), list(q_cpu)))
         report = []
-        for name in INT8_STAGES:
+        for name in q_gpu:
             d = (q_cpu[name] - q_gpu[name]).abs()
             report.append("%s %d of %d (%.4f%%, %d by one, at most %d)" % (
                 name, int((d > 0).sum()), d.numel(), 100.0 * float((d > 0).float().mean()),
@@ -1733,6 +1889,7 @@ def phase_int8_conv(dev, card, ocr, pages):
 
     from pytorchocr_tpu_torch.ops import int8_conv
 
+    side_idle("int8-conv")
     wrapped = int8_conv.int8_conv
 
     def recorded(batch):
@@ -3668,7 +3825,7 @@ def phase_lines_train(dev, card, tmp, kind, lines):
     if rec:
         ctc_on_card(dev)
         checkpoint_round_trip(config, dev, batches, tmp, tag="rec-ckpt", schedule=schedule)
-    lines_overfit(kind, config, dev, card, tmp)
+    beside_run(lines_overfit, kind, config, dev, card, tmp)
     later(f32_check)
 
     torch.cuda.synchronize()
@@ -4506,6 +4663,9 @@ def phase_zoo_train(dev, card, tmp, train_label, eval_label, lines):
           "%s, the train run's evaluate %s" % ([metric[k] for k in keys], [best[k] for k in keys]))
     say("dbpp-eval", "tools.eval.run on latest: hmean %.4f, equal to the train run's; %.2f "
         "pages/s on %s" % (metric["hmean"], metric["fps"], card))
+    # here, not in the side process: there its escape from the ASF plateau
+    # took 250 to over 1,500 steps across runs; in this process, before the
+    # side process, 800 in each of four (PERF.md §6)
     dbpp_overfit(config, os.path.join(out, "config.yml"), dev, card, tmp, train_label)
     later(dbpp_check)
 
@@ -5035,8 +5195,8 @@ def phase_table(dev, card, tmp):
     t = part("train and eval CLIs", t)
 
     # (c) the fixed-batch convergence check
-    table_overfit(dev, card, tmp)
-    part("convergence", t)
+    beside_run(table_overfit, dev, card, tmp)
+    part("convergence (handed to the side process)", t)
     later(f32_check)
     say("table", "phase 18 took %.1f s: %s" % (time.perf_counter() - t_phase, ", ".join(
         "%s %.1f s" % kv for kv in parts.items())))
@@ -5298,9 +5458,9 @@ def phase_distill(dev, card, tmp, train_label, eval_label, lines):
     k1["DML-train-eval"] = distill_train("dml", DML_CFG, dev, card, tmp, train_label, eval_label,
                                          DML_STEPS)[0]
     t = part("distill and DML training", t)
-    distill_overfit(program.preprocess(is_train=True, argv=argv)[0], dev, card, tmp,
-                    train_label)
-    t = part("convergence", t)
+    beside_run(distill_overfit, program.preprocess(is_train=True, argv=argv)[0], dev, card, tmp,
+               train_label)
+    t = part("convergence (handed to the side process)", t)
 
     # (c) rec DML as published
     line_train, line_eval, small = lines
@@ -5775,7 +5935,8 @@ def dp_train_held(started, card):
         "ranks_per_card 2): %d bf16 steps of bs %d a rank (global %d) at %dx%d; mean loss of "
         "the first 10 steps %.4f, of the last 10 %.4f; %s; %.3f steps/s and %.1f global "
         "samples/s over the train iterations (%.1f s of %.1f s with the start, which ran "
-        "beside (a), (c) and (d), and the evaluate; gloo reduces through the host: not NCCL, "
+        "beside (a), (c) and (d), and the evaluate; all of it beside phase 19's card work in "
+        "the run's main process; gloo reduces through the host: not NCCL, "
         "not the card's data-parallel rate) on %s"
         % (DP_STEPS, DP_BS, 2 * DP_BS, TRAIN_SIZE, TRAIN_SIZE, first, last, "; ".join(
             "rank %d: %.3f steps/s, %.1f samples/s, loader wait %.1f%%" % (
@@ -5831,39 +5992,562 @@ def dp_nccl_held(nccl, plain, path):
            got["run_s"], plain["run_s"]))
 
 
-def phase_dp(dev, card, tmp, train_label, eval_label):
-    """Phase 20: training across ranks. Its parts start at once ((b)'s
-    torchrun first, then (c)'s two processes, then (a)'s 1-rank step, the
-    (a) + (d) pair of ranks and (d)'s 1-rank step): each process takes
-    seconds to reach the card, and only (b) times anything, its train
-    iterations, which begin after the others' steps are mostly done. The
-    CPU reference process is stopped throughout. Returns K1's launches on
-    the DP-train-eval path."""
+def phase_dp_start(dev, card, tmp, train_label, eval_label, stack):
+    """Phase 20, its start: training across ranks. Its parts start at once
+    ((b)'s torchrun first, then (c)'s two processes, then (a)'s 1-rank
+    step, the (a) + (d) pair of ranks and (d)'s 1-rank step), each a
+    process of its own in `stack` (an ExitStack that stops them): each
+    process takes seconds to reach the card, and only (b) times anything,
+    its train iterations, which begin after the others' steps are mostly
+    done. This process is free meanwhile: run_phases runs phase 19 beside
+    them (and the niced CPU reference process runs beside both, stopped
+    only in phase 19's timed sections). Returns what phase_dp_end reads."""
     from pytorchocr_tpu_torch.tools import program
 
+    global DP_LIVE
     t0 = time.perf_counter()
-    parts = {}
+    DP_LIVE = True
+    config = program.preprocess(is_train=True, argv=train_argv(
+        os.path.join(tmp, "dp_f32_out"), train_label, eval_label, 2))[0]
+    b = dp_train_start(tmp, train_label, eval_label, stack)
+    finish_c = dp_nccl(tmp, train_label, eval_label, stack)
+    ad = dp_start_ranks(config, dev, tmp, train_label, stack)
+    return dict(t0=t0, b=b, finish_c=finish_c, ad=ad, parts={
+        "all started": time.perf_counter() - t0})
+
+
+def phase_dp_end(started, card, stack):
+    """Phase 20, its end: (c), then (a) and (d), then (b) checked; `stack`
+    closed (its processes stopped). Returns K1's launches on the
+    DP-train-eval path."""
+    global DP_LIVE
+    t0, parts = started["t0"], started["parts"]
 
     def mark(name):
         parts[name] = time.perf_counter() - t0
 
-    config = program.preprocess(is_train=True, argv=train_argv(
-        os.path.join(tmp, "dp_f32_out"), train_label, eval_label, 2))[0]
-    with contextlib.ExitStack() as stack, paused():
-        b = dp_train_start(tmp, train_label, eval_label, stack)
-        finish_c = dp_nccl(tmp, train_label, eval_label, stack)
-        ad = dp_start_ranks(config, dev, tmp, train_label, stack)
-        mark("all started")
-        finish_c()
+    mark("phase 19 done")
+    with stack:
+        started["finish_c"]()
         mark("c done")
-        held = dp_ranks_held(ad, card)
+        held = dp_ranks_held(started["ad"], card)
         mark("a, d done")
-        k1 = dp_train_held(b, card)
+        k1 = dp_train_held(started["b"], card)
         mark("b done")
+    DP_LIVE = False
     later(held)
-    say("dp", "phase 20 took %.1f s: %s (seconds from its start)" % (
+    say("dp", "phase 20 took %.1f s with phase 19 beside it: %s (seconds from its start)" % (
         time.perf_counter() - t0, ", ".join("%s %.1f" % kv for kv in parts.items())))
     return k1
+
+
+# phase 21: the serving side finished with the port. (a) int8 PTQ on the
+# zoo's detectors (ZOO_INT8: tag, the phase 16 reference whose seeded model
+# it takes), through Deter(quant=True) and OCRer(det_quant=True) with phase
+# 5's CRNN; (b) the export of phase 11's DB-ResNet18 to a .pt2 file; (c) the
+# result images of run_ocr and the Runner's split over replicas
+ZOO_INT8 = (("MBv3-small", "MBv3-small DB"), ("MBv3-large-0.5", "MBv3-large-0.5 DB"),
+            ("SFv2", "SFv2 DB"), ("RepVGG-A0", "RepVGG DB"), ("RepVGG-A0 deploy", "RepVGG DB"),
+            ("DB++", "dbpp"))
+# (a)'s bound on the int8 payloads of the card's float32 int8 run against
+# the CPU's on the same scales. An element within rounding of a quantization
+# boundary quantizes a quantum apart, and each later conv carries it on and
+# widens it (measured on an H100: DB++'s stem 12 of 30.1 M elements, one
+# quantum, as phase 8 holds it; its head conv1 27.0% by up to 52 quanta;
+# PERF.md §6). The witness of that spread is the CPU's own int8 run with
+# the float path moved by rounding alone (nudged_payloads): every
+# calibrated absmax ZOO_INT8_WITNESS_ULPS * 2^-23 relative up (4 to 8
+# float32 ulps: the card's fused epilogues round a few ulps apart from the
+# CPU's; one ulp flips 1.1-2.6x fewer early elements than the card does,
+# 4-8 within 0.8-1.3x, PERF.md §6), and a backbone with no
+# int8 conv (RepVGG's deploy form) run in float64. Per payload, the card's
+# share of elements apart is held to ZOO_INT8_WITNESS_X times the witness's
+# (at least ZOO_INT8_MIN_SHARE), and its largest difference to
+# ZOO_INT8_WITNESS_X times the witness's (at least one quantum). The
+# control, every absmax moved by ZOO_INT8_CONTROL relative (a float path
+# 1e-3 off), must break that bound on some payload.
+ZOO_INT8_WITNESS_ULPS, ZOO_INT8_WITNESS_X, ZOO_INT8_MIN_SHARE = 4, 2.0, 1e-4
+ZOO_INT8_CONTROL = 2.0 ** -10
+# (b): the exported program's maps against the Runner's forward, max |diff|
+# over max |map|: float32 (TF32 off), and bf16 (autocast in both; PERF.md)
+EXPORT_F32_TOL, EXPORT_BF16_TOL = 1e-5, 2e-2
+
+
+def ref_int8_det(det_cfg, det_pt, pages, fold=None):
+    """The CPU's int8 run (the plain kernels) of Deter(quant=True).run_batch
+    on `pages`, calibrated on their first half (as run_batch would) as on
+    the card, that phase 21 (a) holds the card's float32 int8 run to: its
+    boxes, det_reference, AbsMax state and int8 payloads. With `fold`
+    (repvgg_fold's), the RepVGG deploy form."""
+    import cv2
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+
+    if fold is not None:
+        det_pt, det_cfg = fold[0], fold[1]
+    t0 = time.perf_counter()
+    deter = Deter(det_cfg, det_pt, device="cpu", quant=True)
+    deter.calibrate_on([cv2.imread(p) for p in pages[: max(1, len(pages) // 2)]])
+    with int8_payloads(deter.runner.model) as payloads:  # run_batch's one int8 forward
+        cpu = box_lists(deter.run_batch([cv2.imread(p) for p in pages]))
+    out = dict(cpu=cpu, cpu_s=time.perf_counter() - t0, det=det_reference(deter, pages),
+               absmax=_absmax_state(deter.runner.model), payloads=payloads, det_cfg=det_cfg,
+               det_pt=det_pt)
+    out["nudged"] = nudged_payloads(deter, pages, out["absmax"], payloads)
+    return out
+
+
+def payloads_apart(want, got):
+    """{payload name: (elements apart, elements, apart by one quantum,
+    largest difference in quanta)} of two int8_payloads readings."""
+    out = {}
+    for name in got:
+        d = (got[name] - want[name]).abs()
+        out[name] = (int((d > 0).sum()), d.numel(), int((d == 1).sum()), int(d.max()))
+    return out
+
+
+@contextlib.contextmanager
+def float64_backbone(model):
+    """Inside the block `model`'s backbone runs in float64 (its input cast
+    up, its maps cast back to float32) if it holds no int8 conv; else as it
+    is. Yields whether it does."""
+    from pytorchocr_tpu_torch.ops.quant import QuantConv
+
+    bb = model.backbone
+    if any(isinstance(m, QuantConv) for m in bb.modules()):
+        yield False
+        return
+
+    def down(mod, inp, out):
+        return [o.float() for o in out] if isinstance(out, (list, tuple)) else out.float()
+
+    bb.double()
+    hooks = [bb.register_forward_pre_hook(lambda mod, inp: tuple(x.double() for x in inp)),
+             bb.register_forward_hook(down)]
+    try:
+        yield True
+    finally:
+        for h in hooks:
+            h.remove()
+        bb.float()
+
+
+def nudged_payloads(deter, pages, absmax, payloads):
+    """Phase 21 (a)'s witness and control on the CPU: payloads_apart of
+    `deter`'s int8 forward over `pages` against `payloads`, the forward on
+    `absmax` itself, with every calibrated absmax ZOO_INT8_WITNESS_ULPS *
+    2^-23 relative up (as many float32 ulps to twice that) and a float
+    backbone in float64 ("witness";
+    float64_backbone), and with every absmax ZOO_INT8_CONTROL relative up
+    ("control")."""
+    from pytorchocr_tpu_torch.utils.weights import load_absmax
+
+    model, out = deter.runner.model, {}
+    up = 1.0 + ZOO_INT8_WITNESS_ULPS * 2.0 ** -23
+    load_absmax(model, {k: v * up for k, v in absmax.items()})
+    with float64_backbone(model) as out["float64 backbone"]:
+        out["witness"] = payloads_apart(payloads, _int8_payloads(deter, pages))
+    load_absmax(model, {k: v * (1.0 + ZOO_INT8_CONTROL) for k, v in absmax.items()})
+    out["control"] = payloads_apart(payloads, _int8_payloads(deter, pages))
+    load_absmax(model, absmax)
+    return out
+
+
+class recorded_int8:
+    """Inside the block the int8 conv's and the requantize kernel's counts
+    (and the conv's by branch) are set to 0 on entry and read on exit, and
+    every int8 conv call (int8_conv.int8_conv) and every requantize call
+    (requant.quantize, dequant, add_act_quantize) is recorded with its
+    output; `hold(tag)` then holds each output to the plain version exactly
+    and returns the grouped convs' arguments and the calls by kind."""
+
+    def __enter__(self):
+        import torch
+
+        from pytorchocr_tpu_torch.ops import int8_conv, requant
+
+        self.convs, self.rq = [], []
+        self.originals = {name: getattr(requant, name) for name in REQUANT_FNS}
+        self.conv = int8_conv.int8_conv
+
+        def conv(*args, out_dtype=torch.float32):
+            y = self.conv(*args, out_dtype=out_dtype)
+            self.convs.append((args, out_dtype, y.clone()))
+            return y
+
+        def recorder(name):
+            def call(*args):
+                out = self.originals[name](*args)
+                self.rq.append((name, args, out.clone()))
+                return out
+            return call
+
+        int8_conv.launches = requant.launches = 0
+        int8_conv.branch_launches = dict.fromkeys(int8_conv.branch_launches, 0)
+        torch.cuda.synchronize()
+        int8_conv.int8_conv = conv
+        for name in REQUANT_FNS:
+            setattr(requant, name, recorder(name))
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from pytorchocr_tpu_torch.ops import int8_conv, requant
+
+        torch.cuda.synchronize()
+        int8_conv.int8_conv = self.conv
+        for name in REQUANT_FNS:
+            setattr(requant, name, self.originals[name])
+        self.conv_launches, self.rq_launches = int8_conv.launches, requant.launches
+        self.branches = dict(int8_conv.branch_launches)
+
+    def hold(self, tag):
+        import torch
+
+        from pytorchocr_tpu_torch.ops import int8_conv
+
+        check(len(self.convs) == self.conv_launches and len(self.rq) == self.rq_launches,
+              "%s: %d int8 conv and %d requantize calls recorded for %d and %d launches"
+              % (tag, len(self.convs), len(self.rq), self.conv_launches, self.rq_launches))
+        for args, od, y in self.convs:
+            check(torch.equal(y, int8_conv.int8_conv_ref(*args, out_dtype=od)),
+                  "%s: int8_conv (%s) differs from the plain version at %s"
+                  % (tag, od, _conv_key(args)))
+        for name, args, out in self.rq:
+            check(torch.equal(out, _requant_ref(name)(*args)), "%s: requant.%s differs from the "
+                  "plain version at %s" % (tag, name, _requant_key(name, args)))
+        grouped = [args for args, _, _ in self.convs if args[7] != 1]
+        kinds = ", ".join("%s %d" % (n, sum(c[0] == n for c in self.rq)) for n in REQUANT_FNS)
+        self.convs = self.rq = None
+        return grouped, kinds
+
+
+def zoo_int8_path(dev, card, tag, det_cfg, det_pt, margin, moved, ocr, pages, ref):
+    """Phase 21 (a) for one detector: its float32 int8 run on the card
+    against the CPU's (`ref`, ref_int8_det's) on the first ZOO_CPU_PAGES
+    pages in phase 8's form (the card's own calibration against the CPU's,
+    then the CPU's scales: the int8 payloads, the boxes); then the bf16
+    main path on all pages: OCRer(det_quant=True).run_many with phase 5's
+    CRNN (`ocr`, its Deter(quant=True) replaced by this model's), whose one
+    int8 forward (after its calibration) has every int8 conv, requantize
+    and K1 launch held to the plain version; pages/s and the det forward
+    against the float one. Returns the main path's launches and the
+    grouped convs' arguments."""
+    import statistics
+
+    import cv2
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+    from pytorchocr_tpu_torch.utils.weights import load_absmax
+
+    few = pages[:ZOO_CPU_PAGES]
+    imgs = [cv2.imread(p) for p in pages]
+    cpu = ref["cpu"]
+    check(sum(len(p) for p in cpu) > 0, "%s-int8: no text boxes on the CPU" % tag)
+    with float32_on_card():
+        deter32 = Deter(det_cfg, det_pt, device=dev, dtype=torch.float32, quant=True)
+        deter32.calibrate_on(imgs[: max(1, len(few) // 2)])  # its own, on the first half
+        own, want = _absmax_state(deter32.runner.model), ref["absmax"]
+        check(sorted(own) == sorted(want), "%s-int8: card and CPU calibrated different modules"
+              % tag)
+        rel = max(float((own[k] - want[k]).abs() / want[k].abs().clamp_min(1e-12)) for k in own)
+        load_absmax(deter32.runner.model, want)  # the CPU's scales from here on
+        with int8_payloads(deter32.runner.model) as got:
+            f32 = box_lists(deter32.run_batch(imgs[: len(few)]))
+        check(got and list(got) == list(ref["payloads"]), "%s-int8: int8 payloads %s on the "
+              "card, %s on the CPU" % (tag, list(got), list(ref["payloads"])))
+        apart = payloads_apart(ref["payloads"], got)
+        witness, control = ref["nudged"]["witness"], ref["nudged"]["control"]
+
+        def reading(r):
+            return "%d of %d (%.4f%%, %d by one, at most %d)" % (r[0], r[1], 100.0 * r[0] / r[1],
+                                                                 r[2], r[3])
+
+        report, broken, past = [], [], []
+        for name, r in apart.items():
+            share_max = max(ZOO_INT8_WITNESS_X * witness[name][0] / r[1], ZOO_INT8_MIN_SHARE)
+            quanta_max = max(ZOO_INT8_WITNESS_X * witness[name][3], 1)
+            report.append("%s: card %s; witness %s; control %s; bound %.4f%%, %d quanta"
+                          % (name, reading(r), reading(witness[name]), reading(control[name]),
+                             100.0 * share_max, quanta_max))
+            if r[0] / r[1] > share_max or r[3] > quanta_max:
+                past.append(name)
+            if control[name][0] / r[1] > share_max or control[name][3] > quanta_max:
+                broken.append(name)
+        say(tag + "-int8-f32", "int8 payloads against the CPU's on its scales (the witness: the "
+            "CPU's run with every absmax %d * 2^-23 relative up%s; the control: %g relative "
+            "up): %s"
+            % (ZOO_INT8_WITNESS_ULPS, " and the float backbone in float64"
+               if ref["nudged"]["float64 backbone"] else "", ZOO_INT8_CONTROL,
+               "; ".join(report)))
+        check(not past, "%s-int8: the card's int8 payloads %s lie past the bound the witness "
+              "sets" % (tag, past))
+        check(broken, "%s-int8: the control (absmax %g relative up) passes the bound on every "
+              "payload" % (tag, ZOO_INT8_CONTROL))
+        if "backbone.stem" in apart:  # the first int8 payload, as phase 8 holds it
+            check(apart["backbone.stem"][3] <= 1, "%s-int8: the stem's int8 output differs from "
+                  "the CPU's by %d quanta" % (tag, apart["backbone.stem"][3]))
+        compare_boxes(ref["det"], deter32, few, cpu, f32, margin, tag=tag + "-int8-f32",
+                      moved=moved)
+    del deter32
+    say(tag + "-int8-f32", "float32 int8 (TF32 off) on %s against the CPU's int8 run (plain "
+        "kernels, %.1f s) on %d pages: %d absmax, the card's own calibration at most %.3g "
+        "relative from the CPU's; with the CPU's scales, the control breaks the bound on %s"
+        % (card, ref["cpu_s"], len(few), len(own), rel, ", ".join(broken)))
+
+    ocr.deter = Deter(det_cfg, det_pt, device=dev, quant=True)  # bf16; run_many calibrates
+    with recorded_kernels() as rec, recorded_int8() as q8:
+        lines = sum(len(p) for p in ocr.run_many(pages))  # through ocr.deter.run_batch
+    k1_shapes = rec.hold(tag + "-int8")
+    grouped, kinds = q8.hold(tag + "-int8")
+    launches = dict(int8_conv=q8.conv_launches, requant=q8.rq_launches, K1=rec.k1_launches,
+                    **{"int8_conv " + b: n for b, n in q8.branches.items()})
+    check(min(launches[k] for k in ("int8_conv", "requant", "K1")) > 0 and lines > 0,
+          "%s-int8: the main path launched %s and found %d lines" % (tag, launches, lines))
+    secs, _ = timed_runs(lambda: ocr.run_many(pages), 1)
+    # the det forward, int8 against float (the same runner out of int8), both bf16, on one
+    # batch: synced calls, alternating, the first round a warm-up
+    runner = ocr.deter.runner
+    batch = _det_batch(ocr.deter, pages)[0]
+    walls = {True: [], False: []}
+    for i in range(4):
+        for q in (True, False) if i % 2 else (False, True):
+            runner.quant = q
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner(batch)
+            torch.cuda.synchronize()
+            if i:
+                walls[q].append((time.perf_counter() - t0) * 1e3)
+    runner.quant = True
+    say(tag + "-int8-bf16", "main path (OCRer(det_quant=True).run_many with phase 5's CRNN, its "
+        "Deter(quant=True).run_batch calibrated on the first half of the %d pages): "
+        "int8_conv.launches %d (wgmma %d, direct %d), requant.launches %d, runmax.launches %d, "
+        "each == the plain version on its inputs (requant: %s; K1: %s); %d lines; %.3f pages/s, "
+        "%.1f lines/s (%d pages of %dx%d, one timed run); det forward median of 3 synced calls: "
+        "int8 %.2f ms, float %.2f ms; on %s"
+        % (PAGES, launches["int8_conv"], launches["int8_conv wgmma"],
+           launches["int8_conv direct"], launches["requant"], launches["K1"], kinds, k1_shapes,
+           lines, PAGES / secs, lines / secs, PAGES, H, W,
+           statistics.median(walls[True]), statistics.median(walls[False]), card))
+    return launches, grouped
+
+
+def grouped_conv_report(tag, grouped, card):
+    """Phase 21 (a): each distinct grouped (depthwise) int8 conv shape of a
+    model's bf16 forward, the int8_conv_direct branch: device time (back to
+    back in one CUDA graph, L2 cold), wrapper and plain time, the bound,
+    and cuDNN's bf16 conv of the same shape for context. Returns the sums
+    over the forward's grouped calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorchocr_tpu_torch.ops import int8_conv
+
+    shapes = {}
+    for args in grouped:
+        shapes.setdefault(_conv_key(args), []).append(args)
+    total = dict.fromkeys(("device_ms", "wrapper_ms", "plain_ms", "bound_ms", "cudnn_ms"), 0.0)
+    rows = []
+    for key, group in shapes.items():
+        xq, wq, scale, bias, stride, padding, dilation, groups = group[0]
+        c = len(group)
+        y = int8_conv.int8_conv(*group[0], out_dtype=torch.bfloat16)
+        dev_ms = stream_ms(lambda x_, y_: int8_conv.launch(
+            x_, wq, scale, bias, y_, stride, padding, dilation, groups), [xq, y])
+        wrap_ms = cuda_ms(lambda: int8_conv.int8_conv(*group[0], out_dtype=torch.bfloat16),
+                          iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: int8_conv.int8_conv_ref(*group[0], out_dtype=torch.bfloat16),
+                           iters=2, warmup=1)
+        bound, by = conv_bound(xq, wq, bias, y, groups)[:2]
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xb = xq.to(torch.bfloat16)
+        cudnn = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, padding, dilation, groups),
+                        iters=10, warmup=2)
+        for k, v in zip(("device_ms", "wrapper_ms", "plain_ms", "bound_ms", "cudnn_ms"),
+                        (dev_ms, wrap_ms, plain_ms, bound, cudnn)):
+            total[k] += c * v
+        rows.append("C%d %dx%d k%d/%d x%d: device %.4f, wrapper %.4f, plain %.4f, bound %.4f by "
+                    "%s (%s), cuDNN bf16 %.4f" % (key[1], key[2], key[3], key[5], key[7][0], c,
+                                                  dev_ms, wrap_ms, plain_ms, bound, by,
+                                                  share(bound, dev_ms), cudnn))
+    say(tag + "-int8-dw", "int8_conv_direct (one thread an output element) on the %d grouped "
+        "convs of the bf16 forward, %d shapes (ms; device: back to back in one CUDA graph over "
+        "copies holding 4x the L2): %s; summed: device %.3f ms, wrapper %.3f, plain %.3f, bound "
+        "%.3f (%s), cuDNN bf16 %.3f on %s"
+        % (len(grouped), len(shapes), "; ".join(rows), total["device_ms"], total["wrapper_ms"],
+           total["plain_ms"], total["bound_ms"], share(total["bound_ms"], total["device_ms"]),
+           total["cudnn_ms"], card))
+    return dict(total, calls=len(grouped), shapes=len(shapes))
+
+
+def export_check(dev, card, tmp, pages):
+    """Phase 21 (b): phase 11's DB-ResNet18 exported at 1x736x1280x3
+    (deploy/common.py's export_program and save_program, as
+    deploy/export_model.py exports), float32 and bf16; each .pt2 loaded
+    afresh (load_program) and run on the card, its maps against the
+    Runner's forward of the same weights on the same normalized page; the
+    file's size and one warm call's ms."""
+    import cv2
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.common import export_program, load_program, save_program
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+
+    ckpt = os.path.join(tmp, "train_out", "best_accuracy")
+    check(os.path.isdir(ckpt), "export: phase 11's checkpoint %s is missing" % ckpt)
+    shape = (1, H, W, 3)
+    page = cv2.cvtColor(cv2.imread(pages[0]), cv2.COLOR_BGR2RGB)[None]
+    check(page.shape == shape, "export: page 0 is %s, not %s" % (page.shape, shape))
+    runner = Deter(TRAIN_CFG, ckpt, device=dev, dtype=torch.float32).runner
+    x = runner.normalize(torch.from_numpy(page).to(dev))
+    parts = []
+    for dtype, tol in ((torch.float32, EXPORT_F32_TOL), (torch.bfloat16, EXPORT_BF16_TOL)):
+        name = str(dtype).split(".")[-1]
+        path = os.path.join(tmp, "db_r18_%s.pt2" % name)
+        runner.dtype = dtype
+        with float32_on_card() if dtype == torch.float32 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            size = save_program(export_program(runner.model, shape, dev, dtype), path)
+            export_s = time.perf_counter() - t0
+            want = runner(page)["maps"].float()
+            fn = load_program(path)
+            with torch.no_grad():
+                got = fn(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        check(got.dtype == dtype and got.shape == want.shape, "export %s: maps %s %s, the "
+              "runner's %s" % (name, got.dtype, tuple(got.shape), tuple(want.shape)))
+        rel = float((got.float() - want).abs().max() / want.abs().max())
+        check(rel <= tol, "export %s: the loaded program's maps are %.3g of max |map| from the "
+              "Runner's (tolerance %g)" % (name, rel, tol))
+        parts.append("%s: %.1f MB, exported and saved in %.1f s; loaded and run: maps %.3g of "
+                     "max |map| from the Runner's forward (tolerance %g), one warm call %.2f ms"
+                     % (name, size / 1e6, export_s, rel, tol, ms))
+    say("export", "DB-ResNet18 (phase 11's checkpoint) through torch.export at %s, float32 NHWC "
+        "in, maps out: %s on %s" % ("x".join(map(str, shape)), "; ".join(parts), card))
+
+
+def images_and_replicas(dev, card, tmp, pages, db):
+    """Phase 21 (c): `python -m pytorchocr_tpu_torch.deploy.run_ocr` (its
+    main, bf16) on one page with phase 5's checkpoints writes res_*.jpg, the
+    page with its res_*.txt rows drawn (draw_ocr_res, with the font its
+    search finds: PIL's fallback where the host has no CJK font); then a
+    Runner over two
+    replicas on this card, float32, against one replica: its split and
+    gather bit for bit one replica's runs of the same shares, for 4 pages
+    and for 3 (padded to 4)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.deploy import run_ocr
+    from pytorchocr_tpu_torch.deploy.common import Runner
+    from pytorchocr_tpu_torch.deploy.infer_det import Deter
+    from pytorchocr_tpu_torch.deploy.utils import _find_cjk_font, draw_ocr_res
+    from pytorchocr_tpu_torch.modeling import build_model
+    from pytorchocr_tpu_torch.utils.config import load_config
+
+    out = os.path.join(tmp, "ocr_images")
+    argv = sys.argv
+    sys.argv = ["run_ocr", "--det_config", DET_CFG, "--det_model_path", db["det_pt"],
+                "--rec_config", REC_CFG, "--rec_model_path", db["rec_pt"], "--img_path",
+                pages[0], "--out_dir", out, "--device", str(dev)]
+    try:
+        run_ocr.main()
+    finally:
+        sys.argv = argv
+    stem = os.path.splitext(os.path.basename(pages[0]))[0]
+    jpg = cv2.imread(os.path.join(out, "res_%s.jpg" % stem))
+    check(jpg is not None and jpg.shape == cv2.imread(pages[0]).shape,
+          "run_ocr wrote no res_%s.jpg of the page's size" % stem)
+    rows = []
+    for line in open(os.path.join(out, "res_%s.txt" % stem), encoding="UTF-8"):
+        parts = line.rstrip("\n").split(",")
+        rows.append([np.array([int(v) for v in parts[:8]]).reshape(4, 2),
+                     ",".join(parts[8:-1]), float(parts[-1])])
+    check(len(rows) > 0, "run_ocr found no text line on page 0")
+    again = os.path.join(tmp, "again.jpg")
+    draw_ocr_res(rows, pages[0], again)
+    check(np.array_equal(jpg, cv2.imread(again)), "run_ocr's res_%s.jpg is not its res_%s.txt "
+          "rows drawn on the page" % (stem, stem))
+    say("images", "run_ocr on page 0 (bf16) wrote res_%s.txt (%d lines) and res_%s.jpg "
+        "(%dx%d), the txt's polygons and texts drawn on the page pixel for pixel (font: %s)"
+        % (stem, len(rows), stem, jpg.shape[1], jpg.shape[0],
+           _find_cjk_font() or "PIL's fallback"))
+
+    with float32_on_card():
+        deter = Deter(DET_CFG, db["det_pt"], device=dev, dtype=torch.float32)
+        one = deter.runner
+        two = Runner(build_model(load_config(DET_CFG)["Architecture"]), [dev, dev],
+                     mean=one.mean.flatten().tolist(), std=one.std.flatten().tolist(),
+                     dtype=torch.float32).load_state(db["det_pt"])
+        check(len(two.replicas) == 2 and two.replicas[1] is not two.model,
+              "the Runner did not build two replicas")
+        batch = _det_batch(deter, pages)[0]
+        notes = []
+        for b in (batch, batch[:3]):
+            n = len(b)
+            got = two(b)["maps"]
+            padded = np.concatenate([b, np.repeat(b[:1], (-n) % 2, axis=0)])
+            half = len(padded) // 2
+            shares = torch.cat([one(padded[:half])["maps"], one(padded[half:])["maps"]])[:n]
+            check(torch.equal(got, shares), "the two-replica Runner's %d pages differ from one "
+                  "replica's runs of the same shares" % n)
+            whole = one(b)["maps"]
+            notes.append("%d pages: bit for bit one replica's runs of the same shares; against "
+                         "one replica on all %d at once, max |diff| %.3g" % (
+                             n, n, float((got - whole).abs().max())))
+    say("replicas", "Runner over two replicas on %s (cuda:0 twice: the split, pad and gather "
+        "path on one card), float32, TF32 off: %s" % (card, "; ".join(notes)))
+
+
+def phase_serving(dev, card, tmp, pages, db, refs):
+    """Phase 21 (the module's phase 21 note above). Returns the int8 zoo's
+    launches by path and kernel and its grouped convs' sums by model."""
+    from pytorchocr_tpu_torch.deploy.run_ocr import OCRer
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name, t):
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+        return time.perf_counter()
+
+    kernels_ready(["int8_conv", "requant"])
+    side_idle("serving")
+    launches, dw = {}, {}
+    ocr = OCRer(DET_CFG, db["det_pt"], REC_CFG, db["rec_pt"], device=dev)  # its CRNN serves all
+    t = time.perf_counter()
+    for tag, src in ZOO_INT8:
+        zoo = refs[src].result()
+        ref = refs["int8 " + tag].result()
+        t = part("waiting for the CPU", t)
+        say(tag + "-int8", "%s, seeded as phase 16 seeds it (head text-like on %d pages: margin "
+            "%s logits)" % (os.path.basename(ref["det_cfg"]), ZOO_CPU_PAGES, _fmt(zoo["margin"])))
+        launches[tag], grouped = zoo_int8_path(
+            dev, card, tag, ref["det_cfg"], ref["det_pt"], zoo["margin"], 2 * db["f32_diff"],
+            ocr, pages, ref)
+        if grouped:
+            dw[tag] = grouped_conv_report(tag, grouped, card)
+        t = part(tag, t)
+    del ocr
+    check(sum(v["int8_conv direct"] for v in launches.values()) > 0
+          and sum(v["int8_conv wgmma"] for v in launches.values()) > 0,
+          "int8 zoo: a branch of the int8 conv was never launched")
+    export_check(dev, card, tmp, pages)
+    t = part("export", t)
+    images_and_replicas(dev, card, tmp, pages, db)
+    part("images and replicas", t)
+    say("serving", "phase 21 took %.1f s: %s" % (time.perf_counter() - t_phase, ", ".join(
+        "%s %.1f s" % kv for kv in parts.items())))
+    return dict(launches=launches, dw=dw)
 
 
 def forbidden_modules():
@@ -5880,18 +6564,21 @@ STREAMED = ("back-to-back launches in one CUDA graph over rotating copies of the
 # each phase's time budget (s), printed beside its time: a phase past it says
 # so on its line and does not fail the run (the host's speed moves every
 # phase; PERF.md §6); they sum to at most 990 s
-PHASE_BUDGET_S = {"1-2": 40, "3": 10, "4": 2, "5": 20, "6": 35, "7": 40, "8": 35, "9": 5,
-                  "9 (requant)": 3, "10": 20, "11": 60, "12": 75, "13": 60, "14": 70, "15": 70,
-                  "16": 35, "17": 75, "18": 85, "19": 140, "20": 100, "checks": 10}
+PHASE_BUDGET_S = {"1-2": 25, "3": 12, "4": 2, "5": 20, "6": 30, "7": 40, "8": 30, "9": 5,
+                  "9 (requant)": 3, "10": 15, "11": 60, "12": 45, "13": 40, "14": 100, "15": 85,
+                  "16": 45, "17": 110, "18": 70, "19": 125, "20": 10, "20 (end)": 10, "21": 80,
+                  "checks": 15}
 ORDER = tuple(p for p in PHASE_BUDGET_S if p != "checks")
 # what a phase reads from earlier ones (--only adds them)
 NEEDS = {"6": ("5",), "8": ("5",), "9": ("8",), "9 (requant)": ("8",), "10": ("5",),
          "14": ("11",), "15": ("11",), "16": ("5",), "17": ("11", "12"), "19": ("11", "12"),
-         "20": ("11",)}
+         "20": ("11",), "21": ("5", "11")}
 # the CPU reference jobs a phase reads (submit_references)
 REFS = {"5": ("slice",), "6": ("slice", "pse"), "7": ("pan",), "8": ("slice", "int8"),
         "10": ("slice", "cls"), "12": ("lines rec",), "13": ("lines cls",),
-        "16": ("slice", "dbpp", "starnet") + tuple(tag for tag, _, _ in ZOO_DET)}
+        "16": ("slice", "dbpp", "starnet") + tuple(tag for tag, _, _ in ZOO_DET),
+        "21": ("slice",) + tuple(src for _, src in ZOO_INT8)
+        + tuple("int8 " + tag for tag, _ in ZOO_INT8)}
 
 
 def chosen_phases(arg):
@@ -5913,11 +6600,12 @@ def chosen_phases(arg):
 
 
 def main():
-    if "--cpu-worker" in sys.argv:  # as the module chip_smoke: its results name it so
+    if sys.argv[1:2] in (["--cpu-worker"], ["--side-worker"]):  # as the module chip_smoke
         sys.path.insert(0, REPO)
         import chip_smoke
 
-        chip_smoke.cpu_worker_main(sys.argv[sys.argv.index("--cpu-worker") + 1])
+        chip_smoke.IN_SIDE = sys.argv[1] == "--side-worker"
+        chip_smoke.cpu_worker_main(sys.argv[2], int(sys.argv[3]))
         return
     if sys.argv[1:2] in (["--rank-job"], ["--train-rank"]):  # a rank of phase 20
         sys.path.insert(0, REPO)
@@ -5946,16 +6634,24 @@ def main():
     card = card_line()
     say("device", "torch.cuda: %s; nvidia-smi: %s; torch %s, CUDA %s"
         % (torch.cuda.get_device_name(0), card, torch.__version__, torch.version.cuda))
-    global WORKER
+    global WORKER, STEP_WORKER, SIDE
     with tempfile.TemporaryDirectory() as tmp:
-        WORKER = CpuWorker(os.path.join(tmp, "cpu_worker"))
+        # the card's host work keeps the cores that the two niced processes leave
+        WORKER = CpuWorker(os.path.join(tmp, "cpu_worker"), "the CPU reference process")
+        STEP_WORKER = CpuWorker(os.path.join(tmp, "step_worker"),
+                                "the CPU reference process of the steps")
+        SIDE = CpuWorker(os.path.join(tmp, "side_worker"), "the side process", side=True)
         try:
             out = run_phases(dev, card, tmp, only or ORDER)
         finally:
-            WORKER.close()
-            say("cpu-worker", "the CPU reference process: stopped %.1f s for the timed sections, "
-                "waited for %.1f s in all" % (WORKER.stopped_s, WORKER.waited_s))
-            WORKER = None
+            for worker in (WORKER, STEP_WORKER, SIDE):
+                worker.close()
+            say("cpu-worker", "the CPU reference processes (references; steps): stopped %.1f s "
+                "and %.1f s for the timed sections, waited for %.1f s and %.1f s in all; the run "
+                "waited %.1f s at its end for the side process's convergence checks"
+                % (WORKER.stopped_s, STEP_WORKER.stopped_s, WORKER.waited_s,
+                   STEP_WORKER.waited_s, SIDE.waited_s))
+            WORKER = STEP_WORKER = SIDE = None
     bad = forbidden_modules()
     check(not bad, "the port imported %s" % bad)
     if only:
@@ -5970,7 +6666,10 @@ def run_phases(dev, card, tmp, phases):
     17-19), then the serving phases (5-10, 16), whose CPU references the
     reference process makes while the trainings' card-bound loops leave it
     the host. Returns what the kernels line reads."""
+    from pytorchocr_tpu_torch import _kernels
+
     t0 = time.perf_counter()
+    _kernels.start(list(_kernels.SIGNATURES))  # one nvcc per source, all started together
     pages = make_pages(tmp)
     refs = submit_references(tmp, pages, {r for p in phases for r in REFS.get(p, ())})
     got = {}
@@ -5982,8 +6681,9 @@ def run_phases(dev, card, tmp, phases):
         got[name] = fn(*args)
         took, budget = time.perf_counter() - t, PHASE_BUDGET_S[name]
         if OVERLAPPED:
-            say("cpu-worker", "phase %s's timed sections %s ran beside the niced CPU reference "
-                "process (its times carry that)" % (name, ", ".join(sorted(OVERLAPPED))))
+            say("beside", "phase %s's timed sections ran beside other work (their times carry "
+                "that): %s" % (name, "; ".join("%s beside %s" % (sec, " and ".join(sorted(who)))
+                                             for sec, who in sorted(OVERLAPPED.items()))))
             OVERLAPPED.clear()
         say("time", "phase %s took %.1f s, budget %d s%s (all phases so far %.1f s)"
             % (name, took, budget, "" if took <= budget else ": PAST ITS BUDGET (a slow host "
@@ -6004,8 +6704,12 @@ def run_phases(dev, card, tmp, phases):
     phase("15", phase_det_train, dev, card, tmp, "pan", *labels)
     phase("17", phase_zoo_train, dev, card, tmp, *labels, lines)
     phase("18", phase_table, dev, card, tmp)
-    phase("19", phase_distill, dev, card, tmp, *labels, lines)
-    phase("20", phase_dp, dev, card, tmp, *labels)
+    # phase 20's processes run beside phase 19, which this process runs meanwhile
+    with contextlib.ExitStack() as dp_stack:
+        dp = phase("20", phase_dp_start, dev, card, tmp, *labels, dp_stack)
+        phase("19", phase_distill, dev, card, tmp, *labels, lines)
+        if dp is not None:
+            phase("20 (end)", phase_dp_end, dp, card, dp_stack.pop_all())
     db = (phase("5", phase_slice, dev, card, tmp, pages, refs.get("slice")) or (0, None))[1]
     phase("6", phase_pse, dev, card, tmp, pages, db and db["rec_pt"], refs.get("pse"))
     phase("7", phase_pan, dev, card, tmp, pages, refs.get("pan"))
@@ -6017,6 +6721,8 @@ def run_phases(dev, card, tmp, phases):
     del q8, ocr_q8
     phase("10", phase_cls, dev, card, tmp, pages, db, refs.get("cls"))
     phase("16", phase_zoo_serve, dev, card, tmp, pages, db, refs)
+    phase("21", phase_serving, dev, card, tmp, pages, db, refs)
+    kernels_ready(list(_kernels.SIGNATURES))  # every kernel built, whichever phases ran
     phases = list(phases) + ["checks"]
     phase("checks", run_deferred)  # the float32-step checks held back (later)
     total = time.perf_counter() - t0
@@ -6027,23 +6733,32 @@ def run_phases(dev, card, tmp, phases):
     k1_paths = {"DB": got["5"][0], "PSE": got["6"][0], "PAN": got["7"],
                 "train-eval": got["11"][0], "PSE-train-eval": got["14"][0],
                 "PAN-train-eval": got["15"][0], **got["16"], "DB++-train-eval": got["17"],
-                **got["19"], "DP-train-eval": got["20"]}
+                **got["19"], "DP-train-eval": got["20 (end)"]}
     k2_paths = {"PSE": got["6"][1], "PSE-train-eval": got["14"][1]}
     return dict(k1_paths=k1_paths, k2_paths=k2_paths, k1=got["1-2"], k2=got["3"], q8=got["9"],
-                rq=got["9 (requant)"], q8_launches=got["8 launches"], total=total)
+                rq=got["9 (requant)"], q8_launches=got["8 launches"], zoo=got["21"], total=total)
 
 
-def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, total):
+def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, zoo, total):
     """The kernels line, the card line and the contract's last line."""
     import torch
 
     q8_conv, q8_k1, q8_rq = q8_launches
-    k1_paths = dict(k1_paths, **{"int8 DB": q8_k1})
-    say("done", "main-path launches: K1 %d (%s), K2 %d (%s), int8_conv %d and requant %d "
-        "(int8 DB); all phases %.1f s"
+    zoo_paths = {"int8 " + tag: n for tag, n in zoo["launches"].items()}
+    k1_paths = dict(k1_paths, **{"int8 DB": q8_k1},
+                    **{path: n["K1"] for path, n in zoo_paths.items()})
+    conv_paths = dict({"int8 DB": q8_conv}, **{p: n["int8_conv"] for p, n in zoo_paths.items()})
+    rq_paths = dict({"int8 DB": q8_rq}, **{p: n["requant"] for p, n in zoo_paths.items()})
+    branches = {b: sum(n["int8_conv " + b] for n in zoo_paths.values()) for b in ("wgmma",
+                                                                                "direct")}
+    branches["wgmma"] += q8_conv  # the int8 DB-ResNet18 has no grouped conv
+    say("done", "main-path launches: K1 %d (%s), K2 %d (%s), int8_conv %d (%s; wgmma %d, direct "
+        "%d) and requant %d (%s); all phases %.1f s"
         % (sum(k1_paths.values()), ", ".join("%s %d" % kv for kv in k1_paths.items()),
            sum(k2_paths.values()), ", ".join("%s %d" % kv for kv in k2_paths.items()),
-           q8_conv, q8_rq, total))
+           sum(conv_paths.values()), ", ".join("%s %d" % kv for kv in conv_paths.items()),
+           branches["wgmma"], branches["direct"], sum(rq_paths.values()),
+           ", ".join("%s %d" % kv for kv in rq_paths.items()), total))
 
     kernels = []
     for name, source, replaces, launches, row, by_path in (
@@ -6062,7 +6777,9 @@ def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, total)
         ))
     kernels.append(dict(
         name="int8_conv", route="cuda", source="pytorchocr_tpu_torch/csrc/int8_conv.cu",
-        replaces="pytorchocr_tpu/ops/quant.py:252", launches=q8_conv,
+        replaces="pytorchocr_tpu/ops/quant.py:252", launches=sum(conv_paths.values()),
+        launches_by_path=conv_paths, launches_by_branch=branches,
+        direct_branch=zoo["dw"],
         max_abs_err=q8["max_abs_err"], ms=q8["device_ms"], device_ms=q8["device_ms"],
         wrapper_ms=q8["wrapper_ms"], plain_ms=q8["plain_ms"], bound_ms=q8["bound_ms"],
         bound_by=q8["bound_by"], library_ms=q8["library_ms"],
@@ -6076,7 +6793,8 @@ def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, total)
     ))
     kernels.append(dict(
         name="requant", route="cuda", source="pytorchocr_tpu_torch/csrc/requant.cu",
-        replaces="pytorchocr_tpu/ops/quant.py:119", launches=q8_rq,
+        replaces="pytorchocr_tpu/ops/quant.py:119", launches=sum(rq_paths.values()),
+        launches_by_path=rq_paths,
         max_abs_err=rq["max_abs_err"], ms=rq["device_ms"], device_ms=rq["device_ms"],
         wrapper_ms=rq["wrapper_ms"], plain_ms=rq["plain_ms"], bound_ms=rq["bound_ms"],
         bound_by="bytes", library_ms=rq["library_ms"],

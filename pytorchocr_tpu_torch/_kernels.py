@@ -12,6 +12,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -24,6 +25,7 @@ NVCC_FLAGS = [
 
 _loaded = {}
 build_log = {}  # name -> (seconds, nvcc's stderr with the -Xptxas -v report)
+_started = {}  # name -> (nvcc process, its waiting thread, its result, source, temporary file)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: library name -> {symbol: argtypes}; the first symbol is the default
@@ -60,30 +62,48 @@ def _lib_path(name):
     return src, os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest[:16]))
 
 
-def build(names):
-    """Build the libraries of `names` that are not built yet, one nvcc per
-    source, all started together. Returns {name: library path}."""
-    libs, procs = {}, {}
-    t0 = time.perf_counter()
+def start(names):
+    """Start nvcc on the libraries of `names` that are neither built nor
+    building, one process per source, and return at once; `build` (and
+    `load`) wait for them. Returns {name: library path}."""
+    libs = {}
     for name in names:
         src, lib = _lib_path(name)
         libs[name] = lib
-        if os.path.exists(lib):
+        if os.path.exists(lib) or name in _started:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = "%s.%d.tmp" % (lib, os.getpid())
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        ), src, tmp)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        done = {}
+
+        def reap(proc=proc, done=done, t0=time.perf_counter()):
+            done["err"] = proc.communicate()[1]
+            done["secs"] = time.perf_counter() - t0  # nvcc's own time, whenever it is read
+
+        waiter = threading.Thread(target=reap, daemon=True)
+        waiter.start()
+        _started[name] = (proc, waiter, done, src, tmp)
+    return libs
+
+
+def build(names):
+    """Build the libraries of `names` that are not built yet, one nvcc per
+    source, all started together (or earlier, by `start`), and wait for
+    them. Returns {name: library path}."""
+    libs = start(names)
     failed = []
-    for name, (proc, src, tmp) in procs.items():
-        _, err = proc.communicate()
+    for name in names:
+        if name not in _started:
+            continue
+        proc, waiter, done, src, tmp = _started.pop(name)
+        waiter.join()
         if proc.returncode != 0:
-            failed.append("nvcc failed on %s:\n%s" % (src, err))
+            failed.append("nvcc failed on %s:\n%s" % (src, done["err"]))
             continue
         os.replace(tmp, libs[name])  # atomic: concurrent builders never see a partial file
-        build_log[name] = (time.perf_counter() - t0, err)
+        build_log[name] = (done["secs"], done["err"])
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs

@@ -2,10 +2,10 @@
 
 Usage:
   python -m pytorchocr_tpu_torch.deploy.infer_cls --config configs/cls/cls_mbv3small.yml \
-      --model_path cls.pt --img_path crops/ --out_dir output/
+      --model_path cls.pt --img_path crops/ --out_dir output/ [--show]
 
-Writes res_<name>.txt with one line `label,prob` per image, as the JAX CLI
-does. Not ported: the result images and --show.
+Writes res_<name>.txt with one line `label,prob` and res_<name>.jpg (the
+crop with its label drawn on it) per image, as the JAX CLI does.
 """
 
 import argparse
@@ -19,6 +19,7 @@ from ..postprocess import build_post_process
 from ..utils.config import load_config
 from .common import build_runner, padded_pow2_batch
 from .infer_det import add_device_arg, list_images
+from .utils import draw_cls_res, show_image
 
 MAX_BS = 512
 
@@ -30,6 +31,7 @@ def parse_args():
                         help=".pt state_dict or training checkpoint directory (OUT/best_accuracy)")
     parser.add_argument("--img_path", type=str, help="test img-path or img-dir")
     parser.add_argument("--out_dir", type=str, help="output directory")
+    parser.add_argument("--show", action="store_true", help="show results")
     add_device_arg(parser)
     return parser.parse_args()
 
@@ -92,6 +94,10 @@ def main():
         label, prob = clser.run(str(img_path))
         with open(out_dir / ("res_%s.txt" % img_path.stem), "w", encoding="UTF-8") as fp:
             fp.write(label + "," + str(prob) + "\n")
+        res_img = draw_cls_res(label, prob, str(img_path),
+                               str(out_dir / ("res_%s.jpg" % img_path.stem)))
+        if args.show:
+            show_image("cls_res", res_img)
 
 
 if __name__ == "__main__":

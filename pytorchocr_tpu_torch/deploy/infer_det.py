@@ -5,7 +5,9 @@ Usage:
       --model_path det.pt --img_path imgs/ --out_dir output/ [--quant --calib_n 8]
 
 `--quant`: int8 PTQ detection (ops/quant.py), calibrated on the first
-`--calib_n` input images before inference.
+`--calib_n` input images (sorted by name) before inference. Writes
+res_<name>.txt (one line of box coordinates a box) and res_<name>.jpg (the
+boxes drawn on the page; `--show` shows it where a display is).
 """
 
 import argparse
@@ -21,6 +23,7 @@ from ..utils.config import load_config
 from ..utils.utility import sort_boxes
 from ..ops import quant as _quant
 from .common import build_runner, padded_pow2_batch
+from .utils import draw_det_res, show_image
 
 MAX_BS = 16
 
@@ -49,6 +52,7 @@ def parse_args():
                         help="int8 PTQ inference, calibrated on the first --calib_n images")
     parser.add_argument("--calib_n", type=int, default=8,
                         help="number of input images used for int8 calibration")
+    parser.add_argument("--show", action="store_true", help="show results")
     add_device_arg(parser)
     return parser.parse_args()
 
@@ -160,6 +164,9 @@ def main():
         with open(out_dir / ("res_%s.txt" % img_path.stem), "w", encoding="UTF-8") as fp:
             for box in boxes:
                 fp.write(",".join(str(v) for v in np.asarray(box).reshape(-1).tolist()) + "\n")
+        res_img = draw_det_res(boxes, str(img_path), str(out_dir / ("res_%s.jpg" % img_path.stem)))
+        if args.show:
+            show_image("det_res", res_img)
 
 
 if __name__ == "__main__":

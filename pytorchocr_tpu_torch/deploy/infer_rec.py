@@ -2,7 +2,10 @@
 
 Usage:
   python -m pytorchocr_tpu_torch.deploy.infer_rec --config configs/rec/rec_vgg_bilstm_ctc.yml \
-      --model_path rec.pt --img_path line.png
+      --model_path rec.pt --img_path line.png [--show]
+
+Writes res_<name>.txt (text,prob) and res_<name>.jpg (the line with its
+text drawn on it) per image, as the JAX CLI does.
 """
 
 import argparse
@@ -16,6 +19,7 @@ from ..postprocess import build_post_process
 from ..utils.config import load_config
 from .common import build_runner, padded_pow2_batch
 from .infer_det import add_device_arg, list_images
+from .utils import draw_rec_res, show_image
 
 MAX_BS = 512
 
@@ -28,6 +32,7 @@ def parse_args():
     parser.add_argument("--img_path", type=str, help="test img-path or img-dir")
     parser.add_argument("--character_dict_path", type=str, default=None)
     parser.add_argument("--out_dir", type=str, help="output directory")
+    parser.add_argument("--show", action="store_true", help="show results")
     add_device_arg(parser)
     return parser.parse_args()
 
@@ -96,6 +101,10 @@ def main():
         text, prob = recer.run(str(img_path))
         with open(out_dir / ("res_%s.txt" % img_path.stem), "w", encoding="UTF-8") as fp:
             fp.write(text + "," + str(prob) + "\n")
+        res_img = draw_rec_res(text, prob, str(img_path),
+                               str(out_dir / ("res_%s.jpg" % img_path.stem)))
+        if args.show:
+            show_image("rec_res", res_img)
 
 
 if __name__ == "__main__":

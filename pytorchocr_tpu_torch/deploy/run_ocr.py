@@ -9,10 +9,12 @@ Usage:
       [--cls_config configs/cls/cls_mbv3small.yml --cls_model_path cls.pt] \
       [--det_quant] --img_path imgs/ --out_dir output/ [--device cuda]
 
-Writes res_<name>.txt (one line per box: coords, text, prob) as the JAX CLI
-does. Each `--*_model_path` takes a .pt state_dict or a training checkpoint
+Writes res_<name>.txt (one line per box: coords, text, prob) and
+res_<name>.jpg (the boxes and their texts drawn on the page, `--font_path`
+for the text; `--show` shows it where a display is) as the JAX CLI does.
+Each `--*_model_path` takes a .pt state_dict or a training checkpoint
 directory (tools.train's OUT/best_accuracy). `--det_quant` runs the
-detector in int8 PTQ, calibrated on the first half of the pages. Not ported: the result images (--show, --font_path).
+detector in int8 PTQ, calibrated on the first half of the pages.
 """
 
 import argparse
@@ -25,6 +27,7 @@ from ..utils.utility import get_part_img
 from .infer_cls import Clser
 from .infer_det import Deter, add_device_arg, list_images
 from .infer_rec import Recer
+from .utils import draw_ocr_res, show_image
 
 
 def parse_args():
@@ -40,6 +43,8 @@ def parse_args():
                         help="int8 PTQ detection, calibrated on the input pages")
     parser.add_argument("--img_path", type=str, required=True)
     parser.add_argument("--out_dir", type=str)
+    parser.add_argument("--show", action="store_true")
+    parser.add_argument("--font_path", type=str, default=None)
     add_device_arg(parser)
     return parser.parse_args()
 
@@ -118,8 +123,12 @@ def main():
             for box, text, prob in ocr_res:
                 row = [str(v) for v in box.reshape(-1).tolist()] + [text, str(prob)]
                 fp.write(",".join(row) + "\n")
+        res_img = draw_ocr_res(ocr_res, str(img_path),
+                               str(out_dir / ("res_%s.jpg" % img_path.stem)), args.font_path)
         if not ocr_res:
             print("[info] 0 text boxes detected in {}".format(img_path))
+        if args.show:
+            show_image("ocr_res", res_img)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,13 @@ a stride-2 hard_swish stem, the blocks, a 1x1 hard_swish `lastconv` to 6x the
 last width; the four feature maps are the inputs of the stride-2 blocks past
 `start_idx` (2 for large, 0 for small) and the lastconv's output. NCHW; BN
 eps 1e-3 and flax momentum 0.99 (torch 0.01) throughout.
+
+int8 PTQ (ops/quant.py), as the JAX package quantizes this backbone
+(:107-116, :148-159): every ConvBNAct (the stem, expand, the depthwise k x k
+with groups = exp, project, lastconv) runs its conv in int8 and emits no
+int8, so each quantizes its own float input with its calibrated
+`act_absmax`; BN, hardswish, the residual add and the SE's plain convs stay
+float (:87-90).
 """
 
 from torch import nn
@@ -111,6 +118,8 @@ class InvertedResidual(nn.Module):
 
 class MobileNetV3(nn.Module):
     """The detection backbone: four feature maps (det_mobilenet_v3.py:123)."""
+
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
 
     def __init__(self, in_channels=3, model_name="large", width_mult=1.0, use_se=True):
         super().__init__()

@@ -9,6 +9,12 @@ branches. `reparameterize_state_dict` folds a train-form model's weights
 into the deploy form's state_dict, as the JAX `reparameterize_params` folds
 its params (BN into the 3x3 kernel, the 1x1 padded to 3x3, the identity BN
 as an identity kernel, `o % in_dim` for grouped convs). NCHW.
+
+int8 PTQ (ops/quant.py): in train form the `dense` and `one` ConvBNActs
+run int8, grouped where `groups_map` says so (JAX :96-101), each on its
+own float input; `idbn` and the SE stay float. The deploy form's `reparam`
+is a plain conv in JAX (:89-93) and stays float, so an int8 RepVGG in
+deploy form is a float backbone under an int8 FPN and head.
 """
 
 import torch
@@ -98,6 +104,8 @@ class RepVGGBlock(nn.Module):
 
 
 class RepVGG(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+
     def __init__(self, in_channels=3, model_name="A0", use_se=False, deploy=False):
         super().__init__()
         num_blocks, wm, groups_map, conf_se = _model_conf(model_name)

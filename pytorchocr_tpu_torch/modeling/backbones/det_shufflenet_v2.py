@@ -5,6 +5,10 @@ NCHW. The feature maps are [the stem after its 3x3/2 max-pool (1/4),
 stage2 (1/8), stage3 (1/16), conv5 (1/32)] (:78-92). A stride-1 block splits
 the channels in halves (the JAX `jnp.split`, :47) and `channel_shuffle`
 (:23-27) gives the JAX channel order on dim 1.
+
+int8 PTQ (ops/quant.py): the depthwise and 1x1 ConvBNActs run int8 on
+their own float inputs (no `emit_q`, JAX :40-55, 76, 89); the split, the
+concat, `channel_shuffle` and the max-pool stay float.
 """
 
 import torch
@@ -51,6 +55,8 @@ class InvertedResidual(nn.Module):
 
 
 class ShuffleNetV2(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+
     def __init__(self, in_channels=3, scale=0.5):
         super().__init__()
         if scale not in _SPECS:

@@ -6,8 +6,9 @@ its spatial means over dims 2 and 3, and `score[..., i:i+1]` (:139-141) is
 `score[:, i:i+1]`. The scale_channel score (N, F, 1, 1) broadcasts over H and
 W as the JAX `broadcast_to` (:133-137) does. Biases as flax has them:
 `ScaleFeatureSelection.conv` has one (:101), `_conv` (:17) and `aw`
-(:86-88) have none. The attention's convs are plain convolutions: the JAX
-package runs no int8 region inside or before the ASF (fpn.py:39,66,99).
+(:86-88) have none. The attention's convs are plain convolutions, float
+under int8 PTQ too (JAX asf.py:18,86,101 are `nn.Conv`s), and the FPN in
+front of it hands it a float map (fpn.py:39,66,99).
 """
 
 import torch

@@ -7,7 +7,7 @@ levels upsampled to 1/4 and concatenated: fused_channels = 4*out_channels.
 v2 (PAN++) adds each FPEM's input to its output and fuses the last FPEM;
 v1 fuses the sum of all FPEMs. NCHW. `use_asf` puts the fused map through
 the ASF attention, `ScaleFeatureSelection(4 * out_channels, out_channels)`
-(JAX fpem_ffm.py:104-108).
+(JAX fpem_ffm.py:104-108), whose convs stay float under int8 PTQ.
 """
 
 import torch
@@ -57,6 +57,8 @@ class FPEM(nn.Module):
 
 
 class FPEM_FFM(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+
     def __init__(self, in_channels, out_channels=128, mode="v2", fpem_num=2,
                  use_asf=False, attention_type="scale_spatial"):
         super().__init__()
@@ -73,7 +75,6 @@ class FPEM_FFM(nn.Module):
             self.add_module(name, FPEM(oc, mode))
         self.concat_attention = (
             ScaleFeatureSelection(oc * 4, oc, attention_type=attention_type) if use_asf else None)
-        self.int8_ported = not use_asf  # ops.quant.unsupported: no int8 ASF (ROADMAP.md A.16)
 
     def forward(self, x):
         c2, c3, c4, c5 = x

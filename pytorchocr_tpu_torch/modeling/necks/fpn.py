@@ -14,7 +14,9 @@ package).
 `use_asf` (DB++): the fused map goes through the ASF attention,
 `ScaleFeatureSelection(fused_channels, sc)` (JAX fpn.py:139-146). The JAX
 FPN keys its int8 regions off under `use_asf` (fpn.py:39,66,99), so the
-fused map here has no `fuse_absmax` then and stays float.
+fused map here has no `fuse_absmax` then and stays float; the laterals
+still run int8 on the backbone's QTensors and hand on float, the smoothing
+convs quantize their float inputs, and the ASF's own convs stay float.
 """
 
 import torch
@@ -28,6 +30,8 @@ __all__ = ["FPN"]
 
 
 class FPN(nn.Module):
+    int8_ported = True  # ops.quant.unsupported: its int8 regions are ported
+
     def __init__(self, in_channels, out_channels=256, mode=None, use_asf=False,
                  attention_type="scale_spatial"):
         super().__init__()
@@ -46,7 +50,6 @@ class FPN(nn.Module):
         self.out2 = ConvBNAct(oc, sc, 3, 1)
         self.qmode = None
         self.fuse_absmax = quant.AbsMax() if mode == "DB" and not use_asf else None
-        self.int8_ported = not use_asf  # ops.quant.unsupported: no int8 ASF (ROADMAP.md A.16)
         self.concat_attention = (
             ScaleFeatureSelection(self.fused_channels, sc, attention_type=attention_type)
             if use_asf else None)

@@ -22,6 +22,9 @@ import torch.nn.functional as F
 from .. import _kernels
 
 launches = 0  # kernel launches (only where the CUDA kernel is launched)
+# the same launches by the kernel's branch (csrc/int8_conv.cu:launch): the
+# wgmma implicit GEMM for groups == 1, int8_conv_direct for grouped convs
+branch_launches = {"wgmma": 0, "direct": 0}
 
 
 def _pair(v):
@@ -123,3 +126,4 @@ def launch(xq, wq, scale, bias, y, stride, padding, dilation, groups):
             "libcuda's tensor-map encoder is missing or refused the shape" if err == -1
             else "cudaError %d" % err))
     launches += 1
+    branch_launches["direct" if groups != 1 else "wgmma"] += 1

@@ -69,16 +69,16 @@ def quantized(model, m="int8"):
 def unsupported(model):
     """Why int8 PTQ of the detection `model` is not ported, or None. Each
     stage of the model (transform, backbone, neck, head) whose JAX int8
-    regions the port carries says so with a true `int8_ported`: the ResNet
-    backbone, the FPN and FPEM_FFM without the ASF attention, and the
-    DB/PSE/PAN heads; the others wait for ROADMAP.md A.16. A module without
-    a backbone (one block, a head) is not judged."""
+    regions the port carries says so with a true `int8_ported`: every
+    detection backbone (ResNet, MobileNetV3, ShuffleNetV2, RepVGG in both
+    forms), the FPN and FPEM_FFM (with or without the ASF attention) and the
+    DB/PSE/PAN heads, so every config of configs/det passes. A module
+    without a backbone (one block, a head) is not judged."""
     if not hasattr(model, "backbone"):
         return None
     for name, stage in model.named_children():
         if not getattr(stage, "int8_ported", False):
-            return "int8 PTQ of the %s (%s) is not ported (ROADMAP.md A.16)" % (
-                name, type(stage).__name__)
+            return "int8 PTQ of the %s (%s) is not ported" % (name, type(stage).__name__)
     return None
 
 
@@ -252,6 +252,10 @@ class QuantConv(nn.Conv2d):
             s_x, xq = x.scale, x.q
         else:
             s_x = _symmetric_qparams(self.act_absmax.get())
+            if not (x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)):
+                # a channel slice (ShuffleNetV2's split): the quantize pass takes dense memory
+                x = x.contiguous(memory_format=torch.channels_last if x.is_cuda
+                                 else torch.contiguous_format)
             xq = requant.quantize(x, s_x)
         wq, s_w = self.packed_weight()
         if xq.device.type == "cuda":

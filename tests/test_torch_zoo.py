@@ -3,8 +3,8 @@ CPU: the ASF attention (DB++) in its three forms, FPN and FPEM_FFM with
 `use_asf`, the detection MobileNetV3 (small x1.0, large x0.5), ShuffleNetV2
 (x0.5, x1.0), RepVGG in train and deploy form, the RepVGG fold against
 `reparameterize_params`, DB++ boxes through DBPostProcess, the zoo's
-published configs built and served through `infer_det`, int8 PTQ refused
-on the detectors whose int8 path is not ported, the RepVGG check tool and
+published configs built and served through `infer_det` (float and int8
+PTQ), the RepVGG check tool and
 the optax-state bridge over the new trees.
 
 Weights cross through the weight bridge with randomised biases and BN
@@ -316,8 +316,8 @@ def test_zoo_config_serves_through_infer_det(tmp_path, monkeypatch, name):
     """The published config at its own widths, seeded weights saved as a
     .pt, through `python -m pytorchocr_tpu_torch.deploy.infer_det`'s main on
     a drawn page (resized to 64 on its short side): one res_*.txt of
-    integer boxes; with `--quant`, the detectors whose int8 path is not
-    ported raise NotImplementedError naming ROADMAP.md A.16."""
+    integer boxes; with `--quant --calib_n 1` (int8 PTQ, calibrated on the
+    page) too: every detector of the zoo runs int8."""
     import synth
 
     cfg_path = _small_eval_config(tmp_path, name)
@@ -334,13 +334,11 @@ def test_zoo_config_serves_through_infer_det(tmp_path, monkeypatch, name):
     infer_det.main()
     rows = (out / "res_det_0000.txt").read_text().splitlines()
     assert all(len(r.split(",")) == 8 for r in rows)
-    ported_int8 = name == "det_r50_db.yml"
+    (out / "res_det_0000.txt").unlink()
     monkeypatch.setattr(sys, "argv", argv + ["--quant", "--calib_n", "1"])
-    if ported_int8:
-        infer_det.main()
-    else:
-        with pytest.raises(NotImplementedError, match="A.16"):
-            infer_det.main()
+    infer_det.main()
+    rows = (out / "res_det_0000.txt").read_text().splitlines()
+    assert all(len(r.split(",")) == 8 for r in rows)
 
 
 def test_check_repvgg_deploy_tool_passes_on_a_checkpoint(tmp_path, capsys):
