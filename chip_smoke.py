@@ -201,8 +201,9 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      OCRer(det_quant=True) with phase 5's CRNN and its Deter, every int8
      conv (both branches), requantize and K1 launch of one forward held to
      the plain version, pages/s, the det forward against the float one,
-     and the direct branch's depthwise shapes timed against cuDNN's bf16
-     conv; (b) phase 11's DB-ResNet18 exported with torch.export (float32
+     and the depthwise branch's (int8_dwconv) shapes timed against
+     cuDNN's float32 grouped conv (library_ms; its sums held equal to the
+     plain version's) and its bf16 conv (context); (b) phase 11's DB-ResNet18 exported with torch.export (float32
      and bf16), reloaded from its .pt2 and held to the Runner's forward;
      (c) run_ocr's res_*.jpg against its res_*.txt, and a Runner over two
      replicas on the card against one.
@@ -382,7 +383,8 @@ class Earlier:
 WORKER = None  # the run's CpuWorker; None runs every job in place (--only, rehearsals)
 # a second niced CPU reference process for the float64 and CPU float32 train
 # steps of the float32-step checks (STEP_JOBS), so that they run beside the
-# serving references instead of after them; None sends them to WORKER
+# serving references instead of after them, and for the serving references
+# that read nothing of WORKER's (step_job); None sends them to WORKER
 STEP_WORKER = None
 STEP_JOBS = ("f64_steps", "float64_selections")
 # the run's side process (a CpuWorker with `side`, not niced, never stopped):
@@ -406,6 +408,15 @@ def cpu_job(fn, *args, **kwargs):
 
     return Pending(value=fn(*[resolve(a) for a in args],
                             **{k: resolve(v) for k, v in kwargs.items()}))
+
+
+def step_job(fn, *args, **kwargs):
+    """cpu_job in STEP_WORKER: a reference that reads nothing of WORKER's
+    jobs (phase 16's seeded zoo detectors, phase 21's int8 runs of them), so
+    that the two processes share the serving references."""
+    if STEP_WORKER is not None:
+        return STEP_WORKER.submit(fn, *args, **kwargs)
+    return cpu_job(fn, *args, **kwargs)
 
 
 def after(pending, key=None):
@@ -1336,19 +1347,25 @@ def submit_references(tmp, pages, wanted):
             ("cls", job_cls, (tmp, pages, det_pt, rec_pt, "slice rows"), {}),
             ("dbpp", job_zoo, (tmp, pages, "dbpp"), {"rec_pt": rec_pt}),
             ("starnet", job_zoo, (tmp, pages, "starnet"), {"det_pt": det_pt})]
-    jobs += [(tag, job_zoo, (tmp, pages, "det"), {"tag": tag, "cfg": cfg, "seed": seed})
-             for tag, cfg, seed in ZOO_DET]
+    # the seeded zoo detectors read nothing of the jobs above: the second
+    # process makes them, and phase 21's int8 runs of them
+    zoo = [(tag, job_zoo, (tmp, pages, "det"), {"tag": tag, "cfg": cfg, "seed": seed})
+           for tag, cfg, seed in ZOO_DET]
     refs = {}
-    for name, fn, args, kwargs in jobs:
+    for name, fn, args, kwargs in jobs + zoo:
         if name in wanted:
             args = tuple(after(refs["slice"], "cpu") if a == "slice rows" else a for a in args)
-            refs[name] = cpu_job(fn, *args, **kwargs)
+            refs[name] = (step_job if fn is job_zoo and args[2] == "det" else cpu_job)(
+                fn, *args, **kwargs)
     cfgs = dict({tag: cfg for tag, cfg, _ in ZOO_DET}, dbpp=DBPP_CFG)
     for tag, src in ZOO_INT8:  # phase 21's CPU int8 runs of phase 16's seeded models
         if "int8 " + tag in wanted:
             fold = after(refs[src], "fold") if tag.endswith("deploy") else None
-            refs["int8 " + tag] = cpu_job(ref_int8_det, cfgs[src], after(refs[src], "det_pt"),
-                                          pages[:ZOO_CPU_PAGES], fold=fold)
+            # in the process that made its model: an earlier job's result is
+            # read in the process that ran it
+            refs["int8 " + tag] = (cpu_job if src == "dbpp" else step_job)(
+                ref_int8_det, cfgs[src], after(refs[src], "det_pt"), pages[:ZOO_CPU_PAGES],
+                fold=fold)
     return refs
 
 
@@ -1861,7 +1878,14 @@ CONV_EDGES = [(2, 3, 23, 30, 16, 7, 2, 3, 1, 1), (1, 24, 9, 31, 10, 3, 1, 1, 1, 
               (2, 16, 15, 17, 8, 3, 1, 2, 2, 1), (1, 32, 7, 9, 40, 3, 1, 1, 1, 1),
               (2, 96, 24, 48, 96, 5, 1, 2, 1, 96), (2, 8, 10, 10, 6, 3, 1, 1, 1, 2),
               (1, 16, 7, 9, 24, 1, 1, 0, 1, 1), (1, 3, 30, 40, 128, 7, 2, 3, 1, 1),
-              (2, 24, 9, 64, 10, 3, 1, 1, 1, 1)]
+              (2, 24, 9, 64, 10, 3, 1, 1, 1, 1),
+              # grouped: int8_dwconv at C 58 (one contiguous run a row, one
+              # channel a thread), a multiplier of 2, output rows narrower
+              # than a thread's 4 columns, fewer output rows than a band,
+              # dilation 2; int8_conv_direct at groups 4 with 4 channels a group
+              (2, 58, 13, 17, 58, 3, 2, 1, 1, 58), (2, 12, 10, 11, 24, 3, 1, 1, 1, 12),
+              (2, 16, 9, 5, 16, 3, 1, 0, 1, 16), (1, 32, 2, 50, 32, 5, 1, 2, 1, 32),
+              (2, 16, 15, 17, 16, 3, 1, 2, 2, 16), (2, 16, 10, 9, 8, 3, 1, 1, 1, 4)]
 
 
 def conv_edge_args(dev, rng, case):
@@ -1945,8 +1969,9 @@ def phase_int8_conv(dev, card, ocr, pages):
                   % (od, _conv_key(a)))
     say("int8", "int8_conv == plain (float32 and bf16 bits) on all %d calls of the %d-page forward "
         "(%d shapes; the forward wrote bf16), all %d of the same pages turned portrait (%dx%d) "
-        "and %d edge shapes (Cin 3 and 24, dilation 2, Cout 40, depthwise, groups 2, 1x1 Cin 16, "
-        "byte loads at Cout 128, an input patch of Cin 24); max_abs_err %g"
+        "and %d edge shapes (Cin 3 and 24, dilation 2, Cout 40, depthwise 5x5 96, groups 2, 1x1 "
+        "Cin 16, byte loads at Cout 128, an input patch of Cin 24; depthwise C 58, multiplier 2, "
+        "Wo 3, H 2, dilation 2, groups 4 with 4 channels a group); max_abs_err %g"
         % (len(calls), PAGES, len(shapes), len(portrait), PORTRAIT_H, H, len(CONV_EDGES),
            max_err))
 
@@ -6325,12 +6350,14 @@ def zoo_int8_path(dev, card, tag, det_cfg, det_pt, margin, moved, ocr, pages, re
     runner.quant = True
     say(tag + "-int8-bf16", "main path (OCRer(det_quant=True).run_many with phase 5's CRNN, its "
         "Deter(quant=True).run_batch calibrated on the first half of the %d pages): "
-        "int8_conv.launches %d (wgmma %d, direct %d), requant.launches %d, runmax.launches %d, "
+        "int8_conv.launches %d (wgmma %d, depthwise %d, direct %d), requant.launches %d, "
+        "runmax.launches %d, "
         "each == the plain version on its inputs (requant: %s; K1: %s); %d lines; %.3f pages/s, "
         "%.1f lines/s (%d pages of %dx%d, one timed run); det forward median of 3 synced calls: "
         "int8 %.2f ms, float %.2f ms; on %s"
         % (PAGES, launches["int8_conv"], launches["int8_conv wgmma"],
-           launches["int8_conv direct"], launches["requant"], launches["K1"], kinds, k1_shapes,
+           launches["int8_conv depthwise"], launches["int8_conv direct"], launches["requant"],
+           launches["K1"], kinds, k1_shapes,
            lines, PAGES / secs, lines / secs, PAGES, H, W,
            statistics.median(walls[True]), statistics.median(walls[False]), card))
     return launches, grouped
@@ -6338,10 +6365,15 @@ def zoo_int8_path(dev, card, tag, det_cfg, det_pt, margin, moved, ocr, pages, re
 
 def grouped_conv_report(tag, grouped, card):
     """Phase 21 (a): each distinct grouped (depthwise) int8 conv shape of a
-    model's bf16 forward, the int8_conv_direct branch: device time (back to
-    back in one CUDA graph, L2 cold), wrapper and plain time, the bound,
-    and cuDNN's bf16 conv of the same shape for context. Returns the sums
-    over the forward's grouped calls."""
+    model's bf16 forward, on the branch the kernel routes it to (int8_dwconv
+    for every one of the zoo's): device time (back to back in one CUDA
+    graph, L2 cold), wrapper and plain time, the bound; the library
+    yardstick, cuDNN's float32 grouped F.conv2d on the int8 values cast to
+    float32, channels_last, timed as the kernel is; it is exact (products
+    below 2^14, at most 25 taps, sums below 2^19: exact in float32 and in
+    TF32's inputs), and its sums rounded to int32 are held equal to the
+    plain version's; cuDNN's bf16 conv of the same shape, timed alike, for
+    context. Returns the sums over the forward's grouped calls."""
     import torch
     import torch.nn.functional as F
 
@@ -6350,11 +6382,16 @@ def grouped_conv_report(tag, grouped, card):
     shapes = {}
     for args in grouped:
         shapes.setdefault(_conv_key(args), []).append(args)
-    total = dict.fromkeys(("device_ms", "wrapper_ms", "plain_ms", "bound_ms", "cudnn_ms"), 0.0)
-    rows = []
+    keys = ("device_ms", "wrapper_ms", "plain_ms", "bound_ms", "by_ops", "by_bytes", "library_ms",
+            "cudnn_ms")
+    total = dict.fromkeys(keys, 0.0)
+    rows, branches = [], {}
     for key, group in shapes.items():
         xq, wq, scale, bias, stride, padding, dilation, groups = group[0]
         c = len(group)
+        cout, kh, kw, _ = wq.shape
+        branch = int8_conv.branch(xq.shape[1], cout, kh, kw, *stride, *dilation, groups)
+        branches[branch] = branches.get(branch, 0) + c
         y = int8_conv.int8_conv(*group[0], out_dtype=torch.bfloat16)
         dev_ms = stream_ms(lambda x_, y_: int8_conv.launch(
             x_, wq, scale, bias, y_, stride, padding, dilation, groups), [xq, y])
@@ -6362,26 +6399,37 @@ def grouped_conv_report(tag, grouped, card):
                           iters=10, warmup=2)
         plain_ms = cuda_ms(lambda: int8_conv.int8_conv_ref(*group[0], out_dtype=torch.bfloat16),
                            iters=2, warmup=1)
-        bound, by = conv_bound(xq, wq, bias, y, groups)[:2]
-        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        xb = xq.to(torch.bfloat16)
-        cudnn = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, padding, dilation, groups),
-                        iters=10, warmup=2)
-        for k, v in zip(("device_ms", "wrapper_ms", "plain_ms", "bound_ms", "cudnn_ms"),
-                        (dev_ms, wrap_ms, plain_ms, bound, cudnn)):
+        bound, by, _, _, by_ops, by_bytes = conv_bound(xq, wq, bias, y, groups)
+        xf = xq.float().contiguous(memory_format=torch.channels_last)
+        wf = wq.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
+        sums = F.conv2d(xf, wf, None, stride, padding, dilation, groups)
+        ones = torch.ones_like(scale)
+        check(torch.equal(sums.round().int(), int8_conv.int8_conv_ref(
+            xq, wq, ones, None, stride, padding, dilation, groups).int()),
+            "%s-int8-dw: cuDNN's float32 grouped conv's sums differ from the plain version's at "
+            "%s" % (tag, key))
+        lib = stream_ms(lambda x_: F.conv2d(x_, wf, None, stride, padding, dilation, groups), [xf])
+        wb, xb = wf.to(torch.bfloat16), xf.to(torch.bfloat16)
+        cudnn = stream_ms(lambda x_: F.conv2d(x_, wb, None, stride, padding, dilation, groups),
+                          [xb])
+        for k, v in zip(keys, (dev_ms, wrap_ms, plain_ms, bound, by_ops, by_bytes, lib, cudnn)):
             total[k] += c * v
-        rows.append("C%d %dx%d k%d/%d x%d: device %.4f, wrapper %.4f, plain %.4f, bound %.4f by "
-                    "%s (%s), cuDNN bf16 %.4f" % (key[1], key[2], key[3], key[5], key[7][0], c,
-                                                  dev_ms, wrap_ms, plain_ms, bound, by,
-                                                  share(bound, dev_ms), cudnn))
-    say(tag + "-int8-dw", "int8_conv_direct (one thread an output element) on the %d grouped "
-        "convs of the bf16 forward, %d shapes (ms; device: back to back in one CUDA graph over "
-        "copies holding 4x the L2): %s; summed: device %.3f ms, wrapper %.3f, plain %.3f, bound "
-        "%.3f (%s), cuDNN bf16 %.3f on %s"
-        % (len(grouped), len(shapes), "; ".join(rows), total["device_ms"], total["wrapper_ms"],
-           total["plain_ms"], total["bound_ms"], share(total["bound_ms"], total["device_ms"]),
-           total["cudnn_ms"], card))
-    return dict(total, calls=len(grouped), shapes=len(shapes))
+        rows.append("C%d %dx%d k%d/%d x%d (%s): device %.4f, wrapper %.4f, plain %.4f, bound %.4f "
+                    "by %s (%s), library %.4f, cuDNN bf16 %.4f"
+                    % (key[1], key[2], key[3], key[5], key[7][0], c, branch, dev_ms, wrap_ms,
+                       plain_ms, bound, by, share(bound, dev_ms), lib, cudnn))
+    total["bound_by"] = "operations" if total["by_ops"] >= total["by_bytes"] else "bytes"
+    say(tag + "-int8-dw", "the %d grouped int8 convs of the bf16 forward (branches: %s), %d shapes "
+        "(ms; device, library and cuDNN bf16: back to back in one CUDA graph over copies holding "
+        "4x the L2; library: cuDNN's float32 grouped conv, its sums equal to the plain "
+        "version's): %s; "
+        "summed: device %.3f ms, wrapper %.3f, plain %.3f, bound %.3f by %s (%s), library %.3f, "
+        "cuDNN bf16 %.3f on %s"
+        % (len(grouped), ", ".join("%s %d" % kv for kv in branches.items()), len(shapes),
+           "; ".join(rows), total["device_ms"], total["wrapper_ms"], total["plain_ms"],
+           total["bound_ms"], total["bound_by"], share(total["bound_ms"], total["device_ms"]),
+           total["library_ms"], total["cudnn_ms"], card))
+    return dict(total, calls=len(grouped), shapes=len(shapes), branches=branches)
 
 
 def export_check(dev, card, tmp, pages):
@@ -6538,7 +6586,7 @@ def phase_serving(dev, card, tmp, pages, db, refs):
             dw[tag] = grouped_conv_report(tag, grouped, card)
         t = part(tag, t)
     del ocr
-    check(sum(v["int8_conv direct"] for v in launches.values()) > 0
+    check(sum(v["int8_conv depthwise"] for v in launches.values()) > 0
           and sum(v["int8_conv wgmma"] for v in launches.values()) > 0,
           "int8 zoo: a branch of the int8 conv was never launched")
     export_check(dev, card, tmp, pages)
@@ -6743,21 +6791,26 @@ def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, zoo, t
     """The kernels line, the card line and the contract's last line."""
     import torch
 
+    from pytorchocr_tpu_torch.ops import int8_conv
+
     q8_conv, q8_k1, q8_rq = q8_launches
     zoo_paths = {"int8 " + tag: n for tag, n in zoo["launches"].items()}
     k1_paths = dict(k1_paths, **{"int8 DB": q8_k1},
                     **{path: n["K1"] for path, n in zoo_paths.items()})
     conv_paths = dict({"int8 DB": q8_conv}, **{p: n["int8_conv"] for p, n in zoo_paths.items()})
     rq_paths = dict({"int8 DB": q8_rq}, **{p: n["requant"] for p, n in zoo_paths.items()})
-    branches = {b: sum(n["int8_conv " + b] for n in zoo_paths.values()) for b in ("wgmma",
-                                                                                "direct")}
+    branches = {b: sum(n["int8_conv " + b] for n in zoo_paths.values())
+                for b in int8_conv.BRANCHES}
     branches["wgmma"] += q8_conv  # the int8 DB-ResNet18 has no grouped conv
-    say("done", "main-path launches: K1 %d (%s), K2 %d (%s), int8_conv %d (%s; wgmma %d, direct "
-        "%d) and requant %d (%s); all phases %.1f s"
+    gemm_paths = dict({"int8 DB": q8_conv}, **{p: n["int8_conv wgmma"]
+                                               for p, n in zoo_paths.items()})
+    dw_paths = {p: n["int8_conv depthwise"] for p, n in zoo_paths.items()}
+    say("done", "main-path launches: K1 %d (%s), K2 %d (%s), int8_conv %d (%s; wgmma %d, "
+        "depthwise %d, direct %d) and requant %d (%s); all phases %.1f s"
         % (sum(k1_paths.values()), ", ".join("%s %d" % kv for kv in k1_paths.items()),
            sum(k2_paths.values()), ", ".join("%s %d" % kv for kv in k2_paths.items()),
            sum(conv_paths.values()), ", ".join("%s %d" % kv for kv in conv_paths.items()),
-           branches["wgmma"], branches["direct"], sum(rq_paths.values()),
+           branches["wgmma"], branches["depthwise"], branches["direct"], sum(rq_paths.values()),
            ", ".join("%s %d" % kv for kv in rq_paths.items()), total))
 
     kernels = []
@@ -6777,9 +6830,8 @@ def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, zoo, t
         ))
     kernels.append(dict(
         name="int8_conv", route="cuda", source="pytorchocr_tpu_torch/csrc/int8_conv.cu",
-        replaces="pytorchocr_tpu/ops/quant.py:252", launches=sum(conv_paths.values()),
-        launches_by_path=conv_paths, launches_by_branch=branches,
-        direct_branch=zoo["dw"],
+        replaces="pytorchocr_tpu/ops/quant.py:252", launches=sum(gemm_paths.values()),
+        launches_by_path=gemm_paths, launches_by_branch=branches,
         max_abs_err=q8["max_abs_err"], ms=q8["device_ms"], device_ms=q8["device_ms"],
         wrapper_ms=q8["wrapper_ms"], plain_ms=q8["plain_ms"], bound_ms=q8["bound_ms"],
         bound_by=q8["bound_by"], library_ms=q8["library_ms"],
@@ -6790,6 +6842,32 @@ def report_kernels(card, k1_paths, k2_paths, k1, k2, q8, rq, q8_launches, zoo, t
         library_note="torch._int_mm (the same int32 product) on the %d 1x1 stride-1 convs of "
                      "the %d; no PyTorch call computes the others (an int8 convolution on CUDA)"
                      % (q8["library_calls"], q8["calls"]),
+        branch="the wgmma implicit GEMM (groups 1); launches: its branch's",
+    ))
+    dw = zoo["dw"]
+    dw_sum = {k: sum(d[k] for d in dw.values()) for k in ("device_ms", "wrapper_ms", "plain_ms",
+                                                          "bound_ms", "by_ops", "by_bytes",
+                                                          "library_ms", "cudnn_ms")}
+    kernels.append(dict(
+        name="int8_dwconv", route="cuda", source="pytorchocr_tpu_torch/csrc/int8_conv.cu",
+        replaces="pytorchocr_tpu/ops/quant.py:252", launches=sum(dw_paths.values()),
+        launches_by_path=dw_paths,
+        max_abs_err=0.0,  # zoo_int8_path's hold() fails the run on any launch that differs
+        ms=dw_sum["device_ms"], device_ms=dw_sum["device_ms"], wrapper_ms=dw_sum["wrapper_ms"],
+        plain_ms=dw_sum["plain_ms"], bound_ms=dw_sum["bound_ms"],
+        bound_by="operations" if dw_sum["by_ops"] >= dw_sum["by_bytes"] else "bytes",
+        library_ms=dw_sum["library_ms"], cudnn_bf16_ms=dw_sum["cudnn_ms"],
+        by_model={tag: {k: d[k] for k in ("calls", "shapes", "device_ms", "wrapper_ms",
+                                          "plain_ms", "bound_ms", "library_ms", "cudnn_ms")}
+                  for tag, d in dw.items()},
+        per="one %d-page %dx%d bf16 int8 forward of each of %s: the sum over their %d grouped "
+            "convs" % (PAGES, H, W, ", ".join(dw), sum(d["calls"] for d in dw.values())),
+        timing=STREAMED, branch="the depthwise branch of int8_conv (groups > 1, one input "
+        "channel a group)",
+        library_note="cuDNN's float32 grouped F.conv2d on the int8 values cast to float32, "
+                     "channels_last, back to back in one CUDA graph as the kernel (exact; its "
+                     "sums held equal to the plain version's); cudnn_bf16_ms: its bf16 conv, "
+                     "timed alike, context",
     ))
     kernels.append(dict(
         name="requant", route="cuda", source="pytorchocr_tpu_torch/csrc/requant.cu",

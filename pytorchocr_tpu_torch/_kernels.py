@@ -32,7 +32,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "runmax": {"runmax_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]},
     "propagate": {"propagate_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
-    "int8_conv": {"int8_conv_launch": [_P] * 5 + [_I] * 17 + [_P]},
+    "int8_conv": {"int8_conv_launch": [_P] * 5 + [_I] * 17 + [_P],
+                  "int8_conv_route": [_I] * 9},
     "requant": {
         "requant_quantize": [_P, _I, _P, _P, _L, _P],
         "requant_dequant": [_P, _P, _P, _I, _L, _P],

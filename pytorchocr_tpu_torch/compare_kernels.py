@@ -8,8 +8,11 @@ reverse).
 Run from the root of a checkout: it times with chip_smoke.kernel_ms, on
 chip_smoke's 736x1280 and 184x320 text-like inputs (K1), its 736x1280
 nested case (K2), the 29 int8 convs of a 4-page 736x1280 DB-ResNet18
-forward (DB_INT8_CONVS, random int8 data) and the stem of the same pages
-turned portrait (PORTRAIT_INT8_CONVS), and holds every build's outputs
+forward (DB_INT8_CONVS, random int8 data), the stem of the same pages
+turned portrait (PORTRAIT_INT8_CONVS) and the 45 depthwise int8 convs of
+the MobileNetV3-small, MobileNetV3-large-0.5 and ShuffleNetV2 detectors'
+4-page forwards (ZOO_DW_INT8_CONVS, bf16 output: int8_dwconv, and
+int8_conv_direct in a build before it), and holds every build's outputs
 against the plain PyTorch versions first. Times are chip_smoke.kernel_ms's
 (torch.profiler's card durations of single launches, the L2 warm): a fair
 old-against-new ratio; chip_smoke.stream_ms gives the bound's shares. Each DIR is named by its last
@@ -21,7 +24,7 @@ runmax_launch(vals, mask, out, prev, changed, H, W, axis, stream); an
 int8_conv.cu without `out_bf16` the first one's, float32 output only:
 int8_conv_launch(x, w, scale, bias, y, N, H, W, Cin, Cout, kh, kw, Ho, Wo,
 sh, sw, ph, pw, dh, dw, groups, stream). For the int8 convs it prints each
-shape's times and bound and each build's sum over the forward.
+shape's times and bound and each build's sum over each forward.
 """
 
 import ctypes
@@ -52,6 +55,30 @@ DB_INT8_CONVS = [
 # the short side at 736): 368-pixel output rows, no multiple of the tile;
 # timed beside the forward, not in its sum
 PORTRAIT_INT8_CONVS = [(3, 1056, 736, 64, 7, 2, 3, 1)]
+# (Cin, H, W, Cout, k, stride, padding, calls) of the depthwise int8 convs
+# (groups = Cin) of one 4-page 736x1280 forward of each int8 zoo detector
+# that has them (chip_smoke phase 21; the int8_dwconv branch): 11, 15 and
+# 19 calls
+ZOO_DW_INT8_CONVS = {
+    "MBv3-small": [
+        (16, 368, 640, 16, 3, 2, 1, 1), (72, 184, 320, 72, 3, 2, 1, 1),
+        (88, 92, 160, 88, 3, 1, 1, 1), (96, 92, 160, 96, 5, 2, 2, 1),
+        (240, 46, 80, 240, 5, 1, 2, 2), (120, 46, 80, 120, 5, 1, 2, 1),
+        (144, 46, 80, 144, 5, 1, 2, 1), (288, 46, 80, 288, 5, 2, 2, 1),
+        (576, 23, 40, 576, 5, 1, 2, 2)],
+    "MBv3-large-0.5": [
+        (8, 368, 640, 8, 3, 1, 1, 1), (32, 368, 640, 32, 3, 2, 1, 1),
+        (40, 184, 320, 40, 3, 1, 1, 1), (40, 184, 320, 40, 5, 2, 2, 1),
+        (64, 92, 160, 64, 5, 1, 2, 2), (120, 92, 160, 120, 3, 2, 1, 1),
+        (104, 46, 80, 104, 3, 1, 1, 1), (96, 46, 80, 96, 3, 1, 1, 2),
+        (240, 46, 80, 240, 3, 1, 1, 1), (336, 46, 80, 336, 3, 1, 1, 1),
+        (336, 46, 80, 336, 5, 2, 2, 1), (480, 23, 40, 480, 5, 1, 2, 2)],
+    "SFv2": [
+        (24, 184, 320, 24, 3, 2, 1, 1), (58, 184, 320, 58, 3, 2, 1, 1),
+        (58, 92, 160, 58, 3, 1, 1, 3), (116, 92, 160, 116, 3, 2, 1, 2),
+        (116, 46, 80, 116, 3, 1, 1, 7), (232, 46, 80, 232, 3, 2, 1, 2),
+        (232, 23, 40, 232, 3, 1, 1, 3)],
+}
 
 
 def _load(dirs, tmp):
@@ -143,43 +170,50 @@ def _cases(smoke, dev, stream):
 
 def _int8_cases(smoke, dev, stream):
     """The DB forward's int8 convs, each in float32 and in bf16 output (a
-    first-interface build takes float32 only); the case label carries the
-    shape's call count and its bound."""
+    first-interface build takes float32 only), and the zoo's depthwise
+    convs in bf16; the case label carries the shape's call count and its
+    bound, the case the forward it sums into (None: not summed)."""
     import numpy as np
     import torch
 
     from .ops import int8_conv
 
+    convs = [(c, "DB-ResNet18", (torch.float32, torch.bfloat16), False) for c in DB_INT8_CONVS]
+    convs += [(c, None, (torch.float32, torch.bfloat16), False) for c in PORTRAIT_INT8_CONVS]
+    convs += [(c, model, (torch.bfloat16,), True) for model, shapes in ZOO_DW_INT8_CONVS.items()
+              for c in shapes]
     cases = []
     rng = np.random.RandomState(smoke.SEED + 9)
-    for i, (cin, h, w, cout, k, st, pad, calls) in enumerate(DB_INT8_CONVS + PORTRAIT_INT8_CONVS):
-        in_forward = i < len(DB_INT8_CONVS)
-        n = smoke.PAGES
+    for (cin, h, w, cout, k, st, pad, calls), forward, dtypes, depthwise in convs:
+        n, groups = smoke.PAGES, cin if depthwise else 1
         xq = torch.from_numpy(rng.randint(-127, 128, (n, cin, h, w)).astype(np.int8)).to(dev)
         xq = xq.contiguous(memory_format=torch.channels_last)
-        wq = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)).to(dev)
+        wq = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin // groups)).astype(np.int8))
+        wq = wq.to(dev)
         scale = torch.from_numpy((rng.rand(cout) * 1e-3).astype(np.float32)).to(dev)
         ho, wo = int8_conv.out_size(h, w, k, k, st, pad, 1)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             y = torch.empty((n, ho, wo, cout), dtype=dtype, device=dev).permute(0, 3, 1, 2)
-            bound = smoke.conv_bound(xq, wq, None, y, 1)
-            want = int8_conv.int8_conv_ref(xq, wq, scale, None, st, pad, 1, 1, dtype).cpu()
+            bound = smoke.conv_bound(xq, wq, None, y, groups)
+            want = int8_conv.int8_conv_ref(xq, wq, scale, None, st, pad, 1, groups, dtype).cpu()
 
             def go(build, xq=xq, wq=wq, scale=scale, y=y, st=st, pad=pad, k=k, ho=ho, wo=wo,
-                   bf16=dtype == torch.bfloat16):
+                   groups=groups, bf16=dtype == torch.bfloat16):
                 fn, first = build["int8_conv"]
                 if first and bf16:
                     return None  # the first interface writes float32 only
                 rest = () if first else (int(bf16),)
                 return fn(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), None, y.data_ptr(),
                           xq.shape[0], xq.shape[2], xq.shape[3], xq.shape[1], wq.shape[0], k, k,
-                          ho, wo, st, st, pad, pad, 1, 1, 1, *rest, stream)
+                          ho, wo, st, st, pad, pad, 1, 1, groups, *rest, stream)
 
-            label = "int8 conv %d %dx%d -> %d %dx%d/%d %s (%s; bound %.4f ms by %s)" % (
-                cin, h, w, cout, k, k, st, "f32" if dtype == torch.float32 else "bf16",
-                "x%d" % calls if in_forward else "portrait, not in the forward", bound[0],
-                bound[1])
-            cases.append((label, "int8_conv", go, y, want, calls, bound[0], in_forward))
+            label = "int8 conv %d %dx%d -> %d %dx%d/%d%s %s (%s; bound %.4f ms by %s)" % (
+                cin, h, w, cout, k, k, st, " depthwise" if depthwise else "",
+                "f32" if dtype == torch.float32 else "bf16",
+                "%s x%d" % (forward, calls) if forward else "portrait, not in the forward",
+                bound[0], bound[1])
+            cases.append((label, "int8_conv", go, y, want, calls, bound[0], forward,
+                          "f32" if dtype == torch.float32 else "bf16"))
     return cases
 
 
@@ -193,7 +227,7 @@ def main(dirs):
     dev = torch.device("cuda:0")
     card = smoke.card_line()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    forward = {}  # (build, dtype) -> [device ms, bound ms] summed over the DB forward's convs
+    forward = {}  # (build, forward, dtype) -> [device ms, bound ms] summed over its convs
     with tempfile.TemporaryDirectory() as tmp:
         builds = _load(dirs, tmp)
         for label, kernel, go, out, want, *weight in _cases(smoke, dev, stream):
@@ -214,16 +248,17 @@ def main(dirs):
             smoke.say("compare", "%s, device ms: %s on %s" % (label, "; ".join(
                 "%s %s" % (n, " / ".join("%.4f" % t for t in ts)) for n, ts in times.items()),
                 card))
-            if weight and weight[2]:  # an int8 conv of the forward: (calls, bound ms, True)
-                calls, bound, _ = weight
+            if weight and weight[2]:  # an int8 conv of a forward: (calls, bound ms, its name, dtype)
+                calls, bound, name, dtype = weight
                 for n, ts in times.items():
-                    acc = forward.setdefault((n, label.split(" (")[0].split()[-1]), [0.0, 0.0])
+                    acc = forward.setdefault((n, name, dtype), [0.0, 0.0])
                     acc[0] += calls * sum(ts) / len(ts)
                     acc[1] += calls * bound
-        for (n, dtype), (ms, bound) in forward.items():
-            smoke.say("compare", "int8 conv, one %d-page DB forward, %s output, build %s: device "
+        for (n, name, dtype), (ms, bound) in forward.items():
+            smoke.say("compare", "int8 conv, one %d-page %s forward%s, %s output, build %s: device "
                       "%.3f ms (mean of its turns), bound %.3f ms, %.0f%% of the bound on %s"
-                      % (smoke.PAGES, dtype, n, ms, bound, 100.0 * bound / ms, card))
+                      % (smoke.PAGES, name, "" if name == "DB-ResNet18" else " (its depthwise "
+                         "convs)", dtype, n, ms, bound, 100.0 * bound / ms, card))
 
 
 if __name__ == "__main__":

@@ -63,10 +63,14 @@
 //    warpgroups) where they give 2 waves of the SMs or more, else 64-row
 //    tiles (layers 3-4); two or three blocks an SM, so one block's
 //    epilogue overlaps another's loads.
-// Grouped and depthwise convs (groups > 1, not on the DB path) keep a
-// direct kernel, one thread an output. What it leaves out (a persistent
-// schedule, split-K, a fused BN/activation/requant epilogue): PERF.md Open
-// questions.
+// Grouped convs with one input channel a group (depthwise, and channel
+// multipliers Cout = m Cin: every grouped conv of the MobileNetV3 and
+// ShuffleNetV2 detectors) take int8_dwconv, a stencil kernel with its own
+// note below. The rest of the grouped convs (Cg > 1, as RepVGG's
+// groups_map, which no config names; depthwise windows past 5x5, strides
+// past 2 or unequal, multipliers past 64) keep int8_conv_direct, one
+// thread an output. What the GEMM leaves out (a persistent schedule,
+// split-K, a fused BN/activation/requant epilogue): PERF.md Open questions.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled comes by entry point
 #include <cuda_bf16.h>
@@ -75,6 +79,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cstring>
+#include <initializer_list>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -252,6 +257,17 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 __device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+  const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(c), __float2bfloat16_rn(d));
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
 
 // ---------------------------------------------------------------- the GEMM
 // The output pixel of GEMM row m: the element offset of its image in x and
@@ -583,7 +599,8 @@ __global__ void __launch_bounds__((Cfg<NC, BN, MODE, OutT>::THREADS),
   }
 }
 
-// groups > 1 (depthwise and grouped convs): one thread an output element.
+// Grouped convs that int8_dwconv does not take (route() below): one thread
+// an output element.
 template <typename OutT>
 __global__ void int8_conv_direct(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                                  const float* __restrict__ scale, const float* __restrict__ bias,
@@ -608,6 +625,433 @@ __global__ void int8_conv_direct(const int8_t* __restrict__ x, const int8_t* __r
   }
   store1(y + idx, dequant(acc, scale[oc], bias != nullptr ? bias[oc] : 0.0f, bias != nullptr));
 }
+
+// ---------------------------------------------------------------- depthwise
+// int8_dwconv: grouped convs with one input channel a group (Cg == 1),
+// output channel oc reading input channel oc / m. It replaces
+// int8_conv_direct on these shapes, which ran at 1-6% of the bound (one
+// thread an output: k^2 byte loads of x and of strided weights an output,
+// an input byte fetched again by each of the k^2 outputs that read it, a
+// sign extension and an IMAD a multiply-accumulate, MAC).
+//
+// What bounds it: the bytes. The zoo's depthwise convs of a 4-page
+// 736x1280 forward need 312-718 M MACs against 133-200 MB moved
+// (0.037-0.060 ms at 3.35 TB/s); at the card's 16.7 T INT32 operations/s
+// even one instruction a MAC would cost 19-43 us, so the kernel must read
+// each byte once and spend well under an instruction a MAC. On the H100
+// it reaches a fifth to a quarter of that bound summed over a model and
+// up to half on the largest shapes (PERF.md §6): instruction issue and
+// the latency of a block's serial steps bind it, not the memory. The
+// design:
+//
+//  * Tiles. A block owns one image, a band of BH output rows, a span of
+//    4 TG output columns and a chunk of CC input channels (m CC output
+//    channels); a thread owns V channels and 4 output columns: V = 4
+//    where a pixel's channels are 4-byte runs and the window is 3x3, V = 2
+//    where they are 2-byte runs (ShuffleNetV2's C 58 and 116), else 1
+//    (5x5 windows: four channels' sums would not fit the registers).
+//  * A row ring, read once. The block walks down its input rows S at a
+//    time (a step: the rows that start output row o's window, o = step);
+//    each thread keeps the int32 sums of the NS = ceil(K / S) output rows
+//    whose windows are open in registers and adds each input row to all
+//    of them, so an input row leaves shared memory once per thread and
+//    comes from device memory once per column span (the K - S halo rows
+//    of two bands a second time, mostly from L2). The ring holds PF + 1
+//    steps; the copies of step s + PF are in flight while step s is
+//    computed: 16-byte cp.async of the 16-byte-aligned superset of the row
+//    segment where the block takes every channel (a contiguous NHWC run),
+//    else g-byte cp.async of each pixel's channel run (g = 16, 8 or 4 as
+//    the addresses allow; plain loads for g < 4). Shared memory keeps the
+//    global layout (NHWC), so any C and any base address stage alike.
+//    Columns and rows outside the image are zeroed in registers, not
+//    copied. One barrier a step: after it every thread is done with the
+//    stage that the next copies refill.
+//  * dp4a on the taps. A thread gathers the NB = 3S + K input columns of
+//    its 4 outputs for each of its channels into words, 4 consecutive
+//    columns a word (V = 1: byte loads; V = 2, 4: one 2- or 4-byte load a
+//    pixel and a 2x4 or 4x4 byte transpose, 4 or 8 __byte_perm a 4
+//    pixels). The window of output u is the bytes S u .. S u + K - 1: one
+//    __byte_perm (a funnel of two words) once a row, then one __dp4a
+//    against the register word (w0, w1, w2, 0) for each open output row
+//    takes a 3-tap row; a 5-tap row takes two __dp4a. Dilations and
+//    windows under 5x5 that are not square take the 3x3 or 5x5 form with
+//    zero weights in between or after. Instructions a MAC in the step
+//    (loads, transposes, windows, __dp4a; a thread's step, from the code):
+//    3x3 stride 1, V = 4: 6 + 16 + 12 + 48 = 82 for 144 MACs (0.57); stride
+//    2: 2 x (9 + 24 + 8) + 48 = 130 for 144 (0.90); V = 2: 6 + 8 + 6 + 24
+//    = 44 for 72 (0.61), stride 2 1.03; 5x5, V = 1: stride 1 8 + ~6 + 6 +
+//    40 = 60 for 100 (0.60), stride 2 0.86. The SASS adds addressing, the
+//    copies and the epilogue: about 240 instructions a 5x5 step (for 100
+//    MACs) in all.
+//  * Epilogue: dequant() and the rounding of the GEMM, so the output
+//    equals int8_conv_ref bit for bit (the int32 sums are exact in any
+//    order). Each thread stores its outputs from registers: one 4-, 8- or
+//    16-byte store of its V channels a column; a warp's lanes hold
+//    neighbouring channels, so a store instruction covers a contiguous run
+//    of the row. Staging the row in shared memory for 16-byte stores cost
+//    a barrier and a copy a step, and measured slower on every model.
+//  * Setup, once a block: the weights as dp4a words (for the zoo's dense
+//    3x3 and 5x5 kernels from aligned 4-byte loads realigned by one
+//    __byte_perm each; else tap by tap through Plan::tap), scales, bias,
+//    the column masks.
+//  * Filling 132 SMs (the sizing rule, launch_dw): CC = C where m C <= 128
+//    (one contiguous run a row), else chunks of about 64 output channels;
+//    TG = the column groups a block of at most 256 threads holds, at most
+//    32 (128 columns), halved while the ring passes 24 KB, then evened
+//    over the spans; BH = the largest of 32, 16, 8, 4, 2 that still gives
+//    one wave (132 x the blocks an SM holds, by the occupancy calculator,
+//    __launch_bounds__ asking for two), else 1. A block's setup waits for
+//    its first loads, which queue behind every block's first copies, so
+//    one wave of taller bands measured faster than two waves of shorter
+//    ones on every model.
+namespace depthwise {
+
+constexpr int PF = 4;            // steps in flight ahead of the one computed
+constexpr int STAGES = PF + 1;   // input ring stages
+constexpr int MAX_THREADS = 256;
+constexpr int MIN_BLOCKS = 2;    // __launch_bounds__: at most 128 registers a thread
+constexpr int MAX_TG = 32;       // column groups a block: 128 output columns
+constexpr int RING_BUDGET = 24 * 1024;  // bytes of the input ring
+
+struct Plan {
+  int N, H, W, C, Cout, m, kh, kw, ph, pw, Ho, Wo;
+  int CC;   // input channels a block
+  int run;  // 1: the block takes every channel, an input row segment is one NHWC run
+  int g;    // run == 0: bytes a copy of a pixel's channel run (16, 8, 4, 2 or 1)
+  int TG;   // column groups of 4 outputs a block
+  int BH;   // output rows a block
+  int RB;   // bytes a staged input row (a multiple of 16)
+  int n_chunks, n_spans, n_bands;
+  // tap[r][q]: the kernel tap (r / dh) kw + q / dw that window position
+  // (r, q) of the K x K form holds, or -1 (a zero weight); dense: the
+  // kernel is the K x K form itself (no dilation, kh = kw = K)
+  signed char tap[5][8];
+  int dense;
+};
+
+__device__ __forceinline__ void copy_bytes(uint8_t* dst, const int8_t* src, int g) {
+  const uint32_t d = smem_u32(dst);
+  if (g == 16) {
+    cp_async16(d, src, true);
+  } else if (g == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  } else if (g == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  } else if (g == 2) {  // plain loads: cp.async copies 4, 8 or 16 bytes
+    *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+  } else {
+    *dst = static_cast<uint8_t>(*src);
+  }
+}
+
+// bytes o .. o + 3 of the little-endian byte string wd[0], wd[1], ... (o
+// is a constant once the loops around the call are unrolled)
+template <int NW>
+__device__ __forceinline__ int window(const uint32_t (&wd)[NW], int o) {
+  const int i = o >> 2, sh = o & 3;
+  return static_cast<int>(sh == 0 ? wd[i] : __byte_perm(wd[i], wd[i + 1], 0x3210 + 0x1111 * sh));
+}
+
+// a 4x4 byte transpose: p[i] holds channels 0..3 of pixel i; c[k] gets
+// channel k of pixels 0..3
+__device__ __forceinline__ void transpose4(const uint32_t* p, uint32_t* c) {
+  const uint32_t t0 = __byte_perm(p[0], p[1], 0x5140), t1 = __byte_perm(p[0], p[1], 0x7362);
+  const uint32_t t2 = __byte_perm(p[2], p[3], 0x5140), t3 = __byte_perm(p[2], p[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+template <int K, int S, int V, typename OutT>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+    int8_dwconv(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                OutT* __restrict__ y, Plan P) {
+  constexpr int G = (K + 3) / 4;                      // dp4a words a weight row
+  constexpr int NS = (K + S - 1) / S;                 // output rows open at once
+  constexpr int NB = 3 * S + K;                       // input columns a thread reads a row
+  constexpr int NW = (3 * S + 4 * (G - 1) + 7) / 4;   // words holding every window's bytes
+  constexpr int ES = static_cast<int>(sizeof(OutT));
+  static_assert(V == 1 || V == 2 || V == 4, "one, two or four channels a thread");
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int chunk = blockIdx.x % P.n_chunks, span = blockIdx.x / P.n_chunks;
+  const int band = blockIdx.y, n = blockIdx.z;
+  const int c0 = chunk * P.CC, cc = min(P.CC, P.C - c0);  // input channels of the chunk
+  const int OCC = P.CC * P.m, occ = cc * P.m;             // its output channels
+  const int BW = 4 * P.TG, wo0 = span * BW, ob = band * P.BH;
+  const int rows_out = min(P.BH, P.Ho - ob), cols_out = min(BW, P.Wo - wo0);
+  const int wi_lo = wo0 * S - P.pw, SPAN = S * (BW - 1) + K;
+  const int pa = max(0, -wi_lo), pb = min(SPAN, P.W - wi_lo);  // the span's columns in the image
+  const int PS = P.run ? P.C : P.CC;  // bytes between two pixels of a staged row
+  const int Dst = P.run ? (pa * P.C + 15) & ~15 : 0;  // where a staged run's aligned start lands
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int ncg = OCC / V, cg = tid % ncg, tg = tid / ncg;
+  const int ocl0 = cg * V;         // this thread's first output channel in the chunk
+  const int icl0 = ocl0 / P.m;     // its input channel in the chunk (V > 1: m == 1)
+  const int P0 = 4 * S * tg;       // its first input column in the span
+  uint8_t* ring = smem;
+  const int8_t* ximg = x + static_cast<size_t>(n) * P.H * P.W * P.C;
+
+  // a step's rows as offsets from the image: the first in-image byte that
+  // the block reads of step s's first row is at roff(s) = roff(0) + s S W C
+  // (advanced a step at a time, never multiplied out)
+  const long long row_bytes = static_cast<long long>(P.W) * P.C, step_bytes = S * row_bytes;
+  const long long roff0 =
+      (static_cast<long long>(ob * S - P.ph) * P.W + wi_lo + pa) * P.C + c0;
+  const uintptr_t xaddr = reinterpret_cast<uintptr_t>(ximg);
+  // run == 0: thread tid copies unit cu of pixels cp0, cp0 + cstride, ...
+  const int units = P.CC / P.g, cstride = nthr / units;
+  const int cu = tid % units, cp0 = tid / units;
+  const bool copier = cp0 < cstride && cu * P.g < cc;
+  // the copies of step s (its rows' offsets from roff) into ring stage `stage`
+  auto issue = [&](int s, int stage, long long roff) {
+    for (int tr = 0; tr < S; ++tr) {
+      const int hi = (ob + s) * S - P.ph + tr;
+      if (hi < 0 || hi >= P.H || pa >= pb) continue;
+      uint8_t* dst = ring + (stage * S + tr) * P.RB;
+      const int8_t* src = ximg + roff + tr * row_bytes;
+      if (P.run) {
+        const int a = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+        const int chunks = (a + (pb - pa) * P.C + 15) >> 4;
+        const uint32_t d = smem_u32(dst + Dst);
+#pragma unroll 1
+        for (int k = tid; k < chunks; k += nthr) cp_async16(d + 16 * k, src - a + 16 * k, true);
+      } else if (copier) {
+#pragma unroll 1
+        for (int p = cp0; p < pb - pa; p += cstride)
+          copy_bytes(dst + (pa + p) * P.CC + cu * P.g,
+                     src + static_cast<size_t>(p) * P.C + cu * P.g, P.g);
+      }
+    }
+  };
+
+  const int steps = rows_out + NS - 1;
+  for (int s = 0; s < PF; ++s) {
+    if (s < steps) issue(s, s, roff0 + s * step_bytes);
+    cp_async_commit();
+  }
+  // the thread's weights as dp4a words
+  const int khw = P.kh * P.kw;
+  int wr[V][K][G];
+  float sc[V], bs[V];
+  bool act[V];
+  const bool has_bias = bias != nullptr;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int ocl = ocl0 + v;
+    act[v] = ocl < occ;
+    const int oc = c0 * P.m + ocl;
+    sc[v] = act[v] ? scale[oc] : 0.0f;
+    bs[v] = act[v] && has_bias ? bias[oc] : 0.0f;
+  }
+  if (P.dense) {
+    // the V channels' K^2 taps each are contiguous: 4-byte loads of the
+    // aligned words around them, realigned by one funnel __byte_perm each,
+    // then each row's taps picked out (positions known at compile time)
+    constexpr int TB = V * K * K;            // bytes of the thread's taps
+    constexpr int NL = (TB + 3) / 4 + 2;     // words loaded: a row's window may read 3 past
+    const int8_t* wt = w + static_cast<size_t>(act[0] ? c0 * P.m + ocl0 : 0) * khw;
+    const uintptr_t wa = reinterpret_cast<uintptr_t>(wt);
+    const uint32_t* wal = reinterpret_cast<const uint32_t*>(wa & ~uintptr_t(3));
+    const int sh = static_cast<int>(wa & 3);
+    // the last word holding a tap: no load past it
+    const int last = static_cast<int>((wa + TB - 1 - (wa & ~uintptr_t(3))) >> 2);
+    uint32_t lw[NL], tw[NL - 1];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) lw[k] = wal[k < last ? k : last];
+    const uint32_t sel = 0x3210 + 0x1111 * sh;
+#pragma unroll
+    for (int k = 0; k + 1 < NL; ++k) tw[k] = __byte_perm(lw[k], lw[k + 1], sel);
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int r = 0; r < K; ++r)
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          const int t = v * K * K + r * K + 4 * gi;  // the word's first tap
+          const int n_taps = K - 4 * gi < 4 ? K - 4 * gi : 4;
+          const uint32_t word = window(tw, t);
+          wr[v][r][gi] =
+              act[v] ? static_cast<int>(word & (0xffffffffu >> (8 * (4 - n_taps)))) : 0;
+        }
+  } else {
+    // P.tap says which kernel tap each window position holds (its indices
+    // are compile-time, so it is read from the parameter bank); every load
+    // in bounds (a clamped tap of channel 0 where inactive), so all of them
+    // are in flight at once
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int8_t* wc = w + static_cast<size_t>(act[v] ? c0 * P.m + ocl0 + v : 0) * khw;
+#pragma unroll
+      for (int r = 0; r < K; ++r)
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = P.tap[r][4 * gi + e];
+            const uint32_t b = static_cast<uint8_t>(wc[act[v] && t >= 0 ? t : 0]);
+            word |= (t >= 0 && act[v] ? b : 0u) << (8 * e);
+          }
+          wr[v][r][gi] = static_cast<int>(word);
+        }
+    }
+  }
+  // the thread's input columns that lie in the image (the span's [pa, pb)):
+  // every column of the span is staged memory, so the gathers load all of
+  // them and zero the others (a byte mask a word, V = 1; a word mask a
+  // pixel, V = 4)
+  uint32_t inside = 0, mask[NW];
+#pragma unroll
+  for (int p = 0; p < NB; ++p)
+    if (P0 + p >= pa && P0 + p < pb) inside |= 1u << p;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    mask[i] = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * i + e < NB && ((inside >> (4 * i + e)) & 1)) mask[i] |= 0xffu << (8 * e);
+  }
+
+  int acc[NS][V][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[j][v][u] = 0;
+
+  // step s adds input rows (ob + s) S - ph + tr to the open output rows
+  // ob + s - NS + 1 + j, held in acc[j] (j = 0 .. NS - 1), at weight row
+  // S (NS - 1 - j) + tr; then acc[0]'s row is complete and written, and the
+  // rows shift. One barrier a step: after it, every thread is done with
+  // step s - 1's ring stage, which is refilled then for step s + PF.
+  // this thread's output row pointer at step s: yb + (s - NS + 1) Wo Cout
+  OutT* const yb =
+      y + ((static_cast<size_t>(n) * P.Ho + ob) * P.Wo + wo0 + 4 * tg) * P.Cout + c0 * P.m + ocl0;
+  const long long out_row = static_cast<long long>(P.Wo) * P.Cout;
+  long long roff = roff0, roff_next = roff0 + PF * step_bytes;  // steps s and s + PF
+  int stage = 0, stage_next = PF % STAGES;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<PF - 1>();  // step s's copies have landed
+    __syncthreads();
+    if (s + PF < steps) issue(s + PF, stage_next, roff_next);
+    cp_async_commit();
+#pragma unroll
+    for (int tr = 0; tr < S; ++tr) {
+      const int hi = (ob + s) * S - P.ph + tr;
+      if (hi < 0 || hi >= P.H) continue;  // a zero row
+      int off0 = 0;
+      if (P.run)
+        off0 = Dst + static_cast<int>((xaddr + roff + tr * row_bytes) & 15) - pa * P.C;
+      const uint8_t* base = ring + (stage * S + tr) * P.RB + off0 + P0 * PS + icl0;
+      uint32_t wd[V][NW];
+      if constexpr (V == 1) {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = 4 * i + e;
+            if (p < NB) word |= static_cast<uint32_t>(base[p * PS]) << (8 * e);
+          }
+          wd[0][i] = word & mask[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          uint32_t px[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = 4 * i + e;
+            if (p < NB) {  // an unconditional load (the span is staged), then a select
+              const uint32_t word = V == 4 ? *reinterpret_cast<const uint32_t*>(base + p * PS)
+                                           : *reinterpret_cast<const uint16_t*>(base + p * PS);
+              px[e] = (inside >> p) & 1 ? word : 0u;
+            } else {
+              px[e] = 0u;
+            }
+          }
+          if constexpr (V == 4) {
+            uint32_t ch[4];
+            transpose4(px, ch);
+#pragma unroll
+            for (int v = 0; v < V; ++v) wd[v][i] = ch[v];
+          } else {  // a 2x4 byte transpose: channel 0's bytes, then channel 1's
+            const uint32_t a = __byte_perm(px[0], px[1], 0x5140);
+            const uint32_t b = __byte_perm(px[2], px[3], 0x5140);
+            wd[0][i] = __byte_perm(a, b, 0x5410);
+            wd[1][i] = __byte_perm(a, b, 0x7632);
+          }
+        }
+      }
+      int win[V][4][G];  // the windows, once a row for all open output rows
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) win[v][u][gi] = window(wd[v], S * u + 4 * gi);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int r = S * (NS - 1 - j) + tr;
+        // no such tap, or a row above the band or past its end
+        if (r >= K || s < NS - 1 - j || s - NS + 1 + j >= rows_out) continue;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int gi = 0; gi < G; ++gi)
+              acc[j][v][u] = __dp4a(win[v][u][gi], wr[v][r][gi], acc[j][v][u]);
+      }
+    }
+    // output row o = ob + s - NS + 1 (acc[0]) is complete: each thread
+    // writes its V channels (4: one 8- or 16-byte store a column) of its 4
+    // columns; a warp's lanes hold neighbouring channels, so its stores
+    // cover contiguous runs of the row
+    if (s >= NS - 1) {
+      OutT* yo = yb + (s - (NS - 1)) * out_row;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (4 * tg + u >= cols_out) continue;
+        OutT* dst = yo + u * P.Cout;
+        if constexpr (V == 4) {
+          if (act[0])  // m == 1 and occ % 4 == 0: all four channels or none
+            store4(dst, dequant(acc[0][0][u], sc[0], bs[0], has_bias),
+                   dequant(acc[0][1][u], sc[1], bs[1], has_bias),
+                   dequant(acc[0][2][u], sc[2], bs[2], has_bias),
+                   dequant(acc[0][3][u], sc[3], bs[3], has_bias));
+        } else if constexpr (V == 2) {
+          if (act[0])  // m == 1 and occ % 2 == 0: both channels or none
+            store2(dst, dequant(acc[0][0][u], sc[0], bs[0], has_bias),
+                   dequant(acc[0][1][u], sc[1], bs[1], has_bias));
+        } else {
+          if (act[0]) store1(dst, dequant(acc[0][0][u], sc[0], bs[0], has_bias));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j + 1 < NS; ++j)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[j][v][u] = acc[j + 1][v][u];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[NS - 1][v][u] = 0;  // row o + NS opens
+    roff += step_bytes;
+    roff_next += step_bytes;
+    stage = stage + 1 == STAGES ? 0 : stage + 1;
+    stage_next = stage_next + 1 == STAGES ? 0 : stage_next + 1;
+  }
+}
+
+}  // namespace depthwise
 
 // ---------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -713,10 +1157,131 @@ int launch_mode(int mode, const int8_t* x, const int8_t* w, const float* scale, 
   return launch_gemm<NC, BN, 3>(x, w, scale, bias, y, s, st);
 }
 
+// 0: the wgmma GEMM (groups 1); 1: int8_dwconv (one input channel a group,
+// a window of at most 5x5 with its dilation, equal strides of 1 or 2, at
+// most 64 output channels an input channel); 2: int8_conv_direct
+int route(int Cin, int Cout, int kh, int kw, int sh, int sw, int dh, int dw, int groups) {
+  if (groups == 1) return 0;
+  const bool window = (kh - 1) * dh + 1 <= 5 && (kw - 1) * dw + 1 <= 5;
+  return Cin == groups && sh == sw && sh <= 2 && window && Cout / Cin <= 64 ? 1 : 2;
+}
+
+int blocks_per_sm(const void* kernel, int threads, int smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int>, int> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(kernel, threads, smem, dev);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  int nb = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, threads, smem) != cudaSuccess ||
+      nb < 1)
+    nb = 1;
+  cache.emplace(key, nb);
+  return nb;
+}
+
+int round16(int v) { return (v + 15) & ~15; }
+
+// the band (BH) and the grid of a planned int8_dwconv launch, then the launch
+template <int K, int S, int V, typename OutT>
+int launch_dw_kernel(const int8_t* x, const int8_t* w, const float* scale, const float* bias,
+                     OutT* y, depthwise::Plan p, int threads, int smem, cudaStream_t st) {
+  auto kernel = depthwise::int8_dwconv<K, S, V, OutT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // BH: the largest of 32, 16, 8, 4, 2 that still fills the SMs once, else 1
+  const int nb = blocks_per_sm(reinterpret_cast<const void*>(kernel), threads, smem);
+  const long long per_band = static_cast<long long>(p.N) * p.n_spans * p.n_chunks;
+  const long long wave = static_cast<long long>(sm_count()) * nb;
+  p.BH = 1;
+  for (int bh : {32, 16, 8, 4, 2})
+    if (per_band * ((p.Ho + bh - 1) / bh) >= wave) {
+      p.BH = bh;
+      break;
+    }
+  p.n_bands = (p.Ho + p.BH - 1) / p.BH;
+  const dim3 grid(static_cast<unsigned>(p.n_chunks * p.n_spans), static_cast<unsigned>(p.n_bands),
+                  static_cast<unsigned>(p.N));
+  kernel<<<grid, threads, smem, st>>>(x, w, scale, bias, y, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// int8_dwconv's tiles (the sizing rule of its note), then the launch
+template <typename OutT>
+int launch_dw(const int8_t* x, const int8_t* w, const float* scale, const float* bias, OutT* y,
+              const Shape& s, cudaStream_t st) {
+  using namespace depthwise;
+  Plan p{};
+  p.N = s.N, p.H = s.H, p.W = s.W, p.C = s.Cin, p.Cout = s.Cout, p.m = s.Cout / s.Cin;
+  p.kh = s.kh, p.kw = s.kw, p.ph = s.ph, p.pw = s.pw;
+  p.Ho = s.Ho, p.Wo = s.Wo;
+  const int K = (s.kh - 1) * s.dh + 1 <= 3 && (s.kw - 1) * s.dw + 1 <= 3 ? 3 : 5, S = s.sh;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  int g = 16;  // the widest copy that every pixel's channel run allows
+  while (g > 1 && (p.C % g != 0 || xa % g != 0)) g /= 2;
+  if (p.C * p.m <= 128) {  // every channel: a row segment is one contiguous run
+    p.run = 1;
+    p.CC = p.C;
+  } else {  // chunks of about 64 output channels, g-aligned
+    p.run = 0;
+    const int chunks = (p.C * p.m + 63) / 64;
+    for (;;) {
+      p.CC = ((p.C + chunks - 1) / chunks + g - 1) / g * g;
+      if (p.CC * p.m <= MAX_THREADS || g == 1) break;
+      g /= 2;
+    }
+  }
+  p.g = g;
+  p.n_chunks = (p.C + p.CC - 1) / p.CC;
+  // V channels a thread (m == 1): V-byte pixel runs to load, V-element runs
+  // to store; four for 3x3 windows (four channels' sums of a 5x5 window
+  // would not fit the registers), else two
+  auto fits = [&](int v) {
+    return p.m == 1 && p.C % v == 0 && xa % v == 0 &&
+           reinterpret_cast<uintptr_t>(y) % (v * sizeof(OutT)) == 0;
+  };
+  const int V = K == 3 && fits(4) ? 4 : K == 3 && fits(2) ? 2 : 1;
+  const int OCC = p.CC * p.m, ncg = OCC / V, ES = static_cast<int>(sizeof(OutT));
+  const int groups4 = (p.Wo + 3) / 4;
+  auto row_bytes = [&](int tg) {
+    const int span = S * (4 * tg - 1) + K;
+    return round16(p.run ? round16(p.pw * p.C) + 16 + span * p.C + 16 : span * p.CC);
+  };
+  int TG = MAX_TG < groups4 ? MAX_TG : groups4;
+  if (TG > MAX_THREADS / ncg) TG = MAX_THREADS / ncg > 1 ? MAX_THREADS / ncg : 1;
+  while (TG > 1 && STAGES * S * row_bytes(TG) > RING_BUDGET) TG /= 2;
+  p.n_spans = (groups4 + TG - 1) / TG;
+  p.TG = (groups4 + p.n_spans - 1) / p.n_spans;  // evened over the spans
+  p.RB = row_bytes(p.TG);
+  p.dense = s.dh == 1 && s.dw == 1 && s.kh == K && s.kw == K;
+  for (int r = 0; r < 5; ++r)
+    for (int q = 0; q < 8; ++q)
+      p.tap[r][q] = r < K && q < K && r % s.dh == 0 && q % s.dw == 0 && r / s.dh < s.kh &&
+                            q / s.dw < s.kw
+                        ? static_cast<signed char>((r / s.dh) * s.kw + q / s.dw)
+                        : -1;
+  const int smem = STAGES * S * p.RB, threads = ncg * p.TG;
+#define LAUNCH_DW(K_, S_, V_) \
+  launch_dw_kernel<K_, S_, V_>(x, w, scale, bias, y, p, threads, smem, st)
+  if (K == 3 && S == 1)
+    return V == 4 ? LAUNCH_DW(3, 1, 4) : V == 2 ? LAUNCH_DW(3, 1, 2) : LAUNCH_DW(3, 1, 1);
+  if (K == 3) return V == 4 ? LAUNCH_DW(3, 2, 4) : V == 2 ? LAUNCH_DW(3, 2, 2) : LAUNCH_DW(3, 2, 1);
+  return S == 1 ? LAUNCH_DW(5, 1, 1) : LAUNCH_DW(5, 2, 1);
+#undef LAUNCH_DW
+}
+
 template <typename OutT>
 int launch(const int8_t* x, const int8_t* w, const float* scale, const float* bias, OutT* y,
            const Shape& s, cudaStream_t st) {
-  if (s.groups != 1) {
+  const int branch = route(s.Cin, s.Cout, s.kh, s.kw, s.sh, s.sw, s.dh, s.dw, s.groups);
+  if (branch == 1) return launch_dw(x, w, scale, bias, y, s, st);
+  if (branch == 2) {
     const size_t total = static_cast<size_t>(s.M) * s.Cout;
     const int threads = 256;
     int8_conv_direct<OutT><<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
@@ -765,4 +1330,11 @@ extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale,
   auto st = static_cast<cudaStream_t>(stream);
   if (out_bf16) return launch(xs, ws, sc, bs, static_cast<__nv_bfloat16*>(y), s, st);
   return launch(xs, ws, sc, bs, static_cast<float*>(y), s, st);
+}
+
+// The branch that int8_conv_launch takes for a shape: 0 the wgmma GEMM, 1
+// int8_dwconv, 2 int8_conv_direct.
+extern "C" int int8_conv_route(int Cin, int Cout, int kh, int kw, int sh, int sw, int dh, int dw,
+                               int groups) {
+  return route(Cin, Cout, kh, kw, sh, sw, dh, dw, groups);
 }

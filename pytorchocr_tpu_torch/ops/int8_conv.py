@@ -22,9 +22,13 @@ import torch.nn.functional as F
 from .. import _kernels
 
 launches = 0  # kernel launches (only where the CUDA kernel is launched)
-# the same launches by the kernel's branch (csrc/int8_conv.cu:launch): the
-# wgmma implicit GEMM for groups == 1, int8_conv_direct for grouped convs
-branch_launches = {"wgmma": 0, "direct": 0}
+# the same launches by the kernel's branch (csrc/int8_conv.cu:route): the
+# wgmma implicit GEMM for groups == 1, int8_dwconv for one input channel a
+# group (depthwise, channel multipliers), int8_conv_direct for the other
+# grouped convs (Cg > 1, windows past 5x5, strides past 2 or unequal)
+BRANCHES = ("wgmma", "depthwise", "direct")
+branch_launches = dict.fromkeys(BRANCHES, 0)
+_routes = {}  # (Cin, Cout, kh, kw, sh, sw, dh, dw, groups) -> branch name
 
 
 def _pair(v):
@@ -126,4 +130,12 @@ def launch(xq, wq, scale, bias, y, stride, padding, dilation, groups):
             "libcuda's tensor-map encoder is missing or refused the shape" if err == -1
             else "cudaError %d" % err))
     launches += 1
-    branch_launches["direct" if groups != 1 else "wgmma"] += 1
+    branch_launches[branch(cin, cout, kh, kw, sh, sw, dh, dw, groups)] += 1
+
+
+def branch(*shape):
+    """The kernel's branch for (Cin, Cout, kh, kw, sh, sw, dh, dw, groups),
+    as the C side routes it (int8_conv_route), kept per shape."""
+    if shape not in _routes:
+        _routes[shape] = BRANCHES[_kernels.load("int8_conv", "int8_conv_route")(*shape)]
+    return _routes[shape]

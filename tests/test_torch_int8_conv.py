@@ -10,9 +10,12 @@ the JAX result cast to bf16 (`QuantConv`'s `y.astype(dtype)`, quant.py:259).
 
 The `cuda`-marked tests hold the hand-written kernel (csrc/int8_conv.cu)
 against the plain version on the card, exactly, in float32 and bf16, at
-those shapes and at the DB-ResNet18 shapes of 4 pages of 736x1280 (stem,
+those shapes, at the DB-ResNet18 shapes of 4 pages of 736x1280 (stem,
 layers, downsamples, FPN laterals and the head), which take each of the
-kernel's load modes and tile sizes; they skip without a card."""
+GEMM's load modes and tile sizes, and at the zoo's depthwise shapes and
+edges (int8_dwconv: whole-row runs and channel chunks, one, two or four
+channels a thread, 3x3 and 5x5 at stride 1 and 2, dilation, multipliers;
+Cg > 1 takes int8_conv_direct); they skip without a card."""
 
 import numpy as np
 import pytest
@@ -35,6 +38,12 @@ CASES = [
     ("depthwise 3x3/2", 2, 8, 11, 13, 8, 3, 2, 1, 1, 8, False),
     ("groups 2", 2, 8, 10, 10, 6, 3, 1, 1, 1, 2, True),
     ("Cin 24 3x3, Wo 100", 2, 24, 9, 100, 10, 3, 1, 1, 1, 1, True),
+    ("depthwise 3x3/2 C58", 2, 58, 11, 13, 58, 3, 2, 1, 1, 58, True),
+    ("depthwise 3x3/1 C88", 1, 88, 9, 10, 88, 3, 1, 1, 1, 88, False),
+    ("depthwise 5x5/2 C40", 2, 40, 13, 15, 40, 5, 2, 2, 1, 40, True),
+    ("depthwise 3x3 dilation 2", 2, 16, 12, 14, 16, 3, 1, 2, 2, 16, False),
+    ("depthwise multiplier 2", 2, 12, 10, 11, 24, 3, 1, 1, 1, 12, True),
+    ("groups 4, Cg 4", 2, 16, 10, 9, 8, 3, 1, 1, 1, 4, True),
 ]
 
 
@@ -138,6 +147,20 @@ CARD_CASES = CASES + [
     ("input patch straddling rows: Cin 8 dilation 2, Wo 130", 1, 8, 12, 130, 40, 3, 1, 2, 2, 1,
      False),
     ("depthwise 5x5 96", 2, 96, 24, 48, 96, 5, 1, 2, 1, 96, True),
+    # the depthwise convs of the int8 MobileNetV3 and ShuffleNetV2 detectors
+    # at 4 pages of 736x1280 (int8_dwconv): the largest, ShuffleNetV2's odd
+    # channel counts, the widest channels, 5x5 at stride 1 and 2
+    ("zoo dw C8 4x368x640 3x3/1", 4, 8, 368, 640, 8, 3, 1, 1, 1, 8, False),
+    ("zoo dw C16 4x368x640 3x3/2", 4, 16, 368, 640, 16, 3, 2, 1, 1, 16, False),
+    ("zoo dw C58 4x184x320 3x3/2", 4, 58, 184, 320, 58, 3, 2, 1, 1, 58, False),
+    ("zoo dw C116 4x46x80 3x3/1", 4, 116, 46, 80, 116, 3, 1, 1, 1, 116, True),
+    ("zoo dw C576 4x23x40 5x5/1", 4, 576, 23, 40, 576, 5, 1, 2, 1, 576, False),
+    ("zoo dw C336 4x46x80 5x5/2", 4, 336, 46, 80, 336, 5, 2, 2, 1, 336, True),
+    # int8_dwconv's edges: output rows narrower than a thread's 4 columns,
+    # fewer output rows than a band, a multiplier on chunked channels
+    ("depthwise Wo 3", 2, 16, 9, 5, 16, 3, 1, 0, 1, 16, True),
+    ("depthwise H 2, 5x5", 1, 32, 2, 50, 32, 5, 1, 2, 1, 32, False),
+    ("depthwise multiplier 3, C 100", 1, 100, 8, 21, 300, 3, 2, 1, 1, 100, True),
 ]
 OUT_DTYPES = [torch.float32, torch.bfloat16]
 
@@ -172,6 +195,28 @@ def test_kernel_unaligned_input_on_card(cuda_device):
     for out_dtype in OUT_DTYPES:
         assert torch.equal(int8_conv.int8_conv(x, *args, out_dtype=out_dtype),
                            int8_conv.int8_conv_ref(x, *args, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,k,stride", [(58, 3, 2), (40, 3, 1), (144, 5, 1)],
+                         ids=["C58 one run", "C40 byte gathers", "C144 byte copies"])
+def test_kernel_unaligned_grouped_input_on_card(cuda_device, cin, k, stride):
+    """A depthwise payload that starts off a 16-byte (and a 4-byte)
+    boundary: the whole-row run's aligned superset (C 58), one channel a
+    thread where four would need 4-byte pixels (C 40), and chunked channels
+    copied byte by byte (C 144)."""
+    xq, wq, scale, b = make_case(2, cin, 11, 19, cin, k, cin, True, seed=cin)
+    flat = torch.zeros(xq.size + 1, dtype=torch.int8, device=cuda_device)
+    x = flat[1:].view(2, 11, 19, cin).permute(0, 3, 1, 2)
+    x.copy_(_t(xq))
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 4
+    args = (_t(wq).to(cuda_device), _t(scale).to(cuda_device), _t(b).to(cuda_device), stride,
+            k // 2, 1, cin)
+    before = int8_conv.branch_launches["depthwise"]
+    for out_dtype in OUT_DTYPES:
+        assert torch.equal(int8_conv.int8_conv(x, *args, out_dtype=out_dtype),
+                           int8_conv.int8_conv_ref(x, *args, out_dtype=out_dtype))
+    assert int8_conv.branch_launches["depthwise"] == before + len(OUT_DTYPES)
 
 
 @pytest.mark.cuda
