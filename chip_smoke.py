@@ -207,6 +207,22 @@ Phases, one line each, any failure ends the run with a non-zero exit:
      and bf16), reloaded from its .pt2 and held to the Runner's forward;
      (c) run_ocr's res_*.jpg against its res_*.txt, and a Runner over two
      replicas on the card against one.
+ 22. the zoo's tail (TAIL_CONFIGS: repo configs with Architecture.Backbone
+     replaced whole). (a) DB-ConvNeXt-tiny with a CRNN-ResNet34 (6,624
+     classes) and DB-Swin-T with phase 5's CRNN served at full width with
+     seeded weights on phase 5's pages as phase 16 serves the zoo (float32
+     against the CPU on 2 pages, the bf16 main path timed by stage with
+     every K1 launch held); (b) DB-ConvNeXt-tiny trained with AdamW (bs 16
+     at 640x640, bf16): Global.remat against the plain step over the same
+     fixed batches from one init (steps/s, peak memory, losses and running
+     statistics within float32 rounding), tools.train.run with Global.remat
+     and Global.use_profiler (the trace's size and the steps it covers),
+     and one float32 AdamW step (bs 2 at 320x320) against float64 on phase
+     12-13's floors; (c) SGD (nesterov, weight decay) and
+     RMSprop on CRNN-ResNet34, every update held to optax's rule in float64
+     on the card's own gradients, the loss falling. (b) and (c) run first,
+     while the CPU reference processes make (b)'s float64 step and (a)'s
+     references.
 Each main-path run sets the kernels' counts to 0 just before it and reads
 them just after. At the end it checks that no module of jax, flax or the
 JAX package (pytorchocr_tpu) was loaded. The line before the last is
@@ -217,7 +233,7 @@ the contract {"ok": true, "device":
 no result.
 
 The phases run in the order 1-4, 11-15, 17, 18, 20 with 19 beside it, 5-10,
-16, 21 (run_phases: the trainings' card-bound loops leave the host to the
+16, 21, 22 (run_phases: the trainings' card-bound loops leave the host to the
 CPU reference work of the serving phases; nvcc starts on every kernel
 source at the top of the run, and each phase waits only for the kernels it
 launches). The convergence checks of phases 12, 13, 18 and 19 (a fixed batch
@@ -1076,17 +1092,12 @@ def det_inputs(deter, pages):
 def seeded_checkpoints(dirname, det_cfg, rec_cfg, pages):
     """Full-width models with weights from a torch.Generator; the DB head is
     made text-like on `pages` (utils.seeded.text_like_db_head_) and the CTC
-    head decisive (decisive_ctc_head_). Returns the .pt paths and the DB
-    head's threshold margin in logits."""
-    import cv2
-    import numpy as np
+    head decisive (seeded_rec). Returns the .pt paths and the DB head's
+    threshold margin in logits."""
     import torch
 
     from pytorchocr_tpu_torch.deploy.infer_det import Deter
-    from pytorchocr_tpu_torch.deploy.infer_rec import Recer
-    from pytorchocr_tpu_torch.utils.seeded import (
-        decisive_ctc_head_, seeded_init_, text_like_db_head_,
-    )
+    from pytorchocr_tpu_torch.utils.seeded import seeded_init_, text_like_db_head_
 
     gen = torch.Generator().manual_seed(SEED)
     deter = Deter(det_cfg, None, device="cpu")
@@ -1094,14 +1105,28 @@ def seeded_checkpoints(dirname, det_cfg, rec_cfg, pages):
     margin = text_like_db_head_(model, *det_inputs(deter, pages))
     det_pt = os.path.join(dirname, "det.pt")
     torch.save(model.state_dict(), det_pt)
+    return det_pt, seeded_rec(dirname, rec_cfg, pages, gen, "rec.pt"), margin
+
+
+def seeded_rec(dirname, rec_cfg, pages, gen, name):
+    """A full-width CTC recogniser of `rec_cfg` with weights from the
+    torch.Generator `gen`, its head made decisive (decisive_ctc_head_) on
+    strips of the first page; its .pt path (`name` in `dirname`)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from pytorchocr_tpu_torch.deploy.infer_rec import Recer
+    from pytorchocr_tpu_torch.utils.seeded import decisive_ctc_head_, seeded_init_
+
     recer = Recer(rec_cfg, None, device="cpu")
     model = seeded_init_(recer.runner.model, gen)
     page_img = cv2.imread(pages[0])
     strips = [recer._prep(page_img[y : y + 48, : W // 2]) for y in range(30, H - 48, 90)]
     decisive_ctc_head_(model, torch.from_numpy(np.stack(strips)).permute(0, 3, 1, 2))
-    rec_pt = os.path.join(dirname, "rec.pt")
-    torch.save(model.state_dict(), rec_pt)
-    return det_pt, rec_pt, margin
+    path = os.path.join(dirname, name)
+    torch.save(model.state_dict(), path)
+    return path
 
 
 def seeded_det(dirname, det_cfg, pages, text_like, seed, prepare=None):
@@ -1349,14 +1374,17 @@ def submit_references(tmp, pages, wanted):
             ("starnet", job_zoo, (tmp, pages, "starnet"), {"det_pt": det_pt})]
     # the seeded zoo detectors read nothing of the jobs above: the second
     # process makes them, and phase 21's int8 runs of them
-    zoo = [(tag, job_zoo, (tmp, pages, "det"), {"tag": tag, "cfg": cfg, "seed": seed})
-           for tag, cfg, seed in ZOO_DET]
+    second = [(tag, job_zoo, (tmp, pages, "det"), {"tag": tag, "cfg": cfg, "seed": seed})
+              for tag, cfg, seed in ZOO_DET]
+    if any(name.startswith("tail ") for name in wanted):
+        tail_configs(tmp)  # written before the processes read them
     refs = {}
-    for name, fn, args, kwargs in jobs + zoo:
-        if name in wanted:
-            args = tuple(after(refs["slice"], "cpu") if a == "slice rows" else a for a in args)
-            refs[name] = (step_job if fn is job_zoo and args[2] == "det" else cpu_job)(
-                fn, *args, **kwargs)
+    for submit, listed in ((cpu_job, jobs), (step_job, second)):
+        for name, fn, args, kwargs in listed:
+            if name in wanted:
+                args = tuple(after(refs["slice"], "cpu") if a == "slice rows" else a
+                             for a in args)
+                refs[name] = submit(fn, *args, **kwargs)
     cfgs = dict({tag: cfg for tag, cfg, _ in ZOO_DET}, dbpp=DBPP_CFG)
     for tag, src in ZOO_INT8:  # phase 21's CPU int8 runs of phase 16's seeded models
         if "int8 " + tag in wanted:
@@ -1366,6 +1394,16 @@ def submit_references(tmp, pages, wanted):
             refs["int8 " + tag] = (cpu_job if src == "dbpp" else step_job)(
                 ref_int8_det, cfgs[src], after(refs[src], "det_pt"), pages[:ZOO_CPU_PAGES],
                 fold=fold)
+    # phase 22's references last, after phase 21's int8 runs (queued before
+    # the int8 DB++ run they held phase 21 up by 90.5 s; both in the first
+    # process, phase 22 by 84.1 s, on one H100 host): DB-Swin reads phase 5's
+    # CRNN, so the first process makes it; DB-ConvNeXt and its CRNN read
+    # nothing earlier, so the second does, ahead of the float64 steps that
+    # the run reads only at its end
+    if "tail swin" in wanted:
+        refs["tail swin"] = cpu_job(job_tail, tmp, pages, "swin", rec_pt=rec_pt)
+    if "tail convnext" in wanted:
+        refs["tail convnext"] = step_job(job_tail, tmp, pages, "convnext")
     return refs
 
 
@@ -2665,11 +2703,11 @@ def first_batches(config, n, bs, label=None):
     return list(loader)[:n]
 
 
-def train_parts(config, device, amp, schedule=None, wrap_loss=None, frozen=()):
+def train_parts(config, device, amp, schedule=None, wrap_loss=None, frozen=(), remat=False):
     """A model with the trainer's seeded init, its optimizer (the LR
     schedule over `schedule`, (epochs, steps an epoch); by default phase
-    11's) and train step; `wrap_loss` wraps the step's loss; `frozen` goes
-    to the step (trainer.make_train_step)."""
+    11's) and train step; `wrap_loss` wraps the step's loss; `frozen` and
+    `remat` go to the step (trainer.make_train_step)."""
     from pytorchocr_tpu_torch.losses import build_loss
     from pytorchocr_tpu_torch.optimizer import build_optimizer
     from pytorchocr_tpu_torch.tools.train import build_train_model
@@ -2683,7 +2721,8 @@ def train_parts(config, device, amp, schedule=None, wrap_loss=None, frozen=()):
     spec = config["Global"].get("_device_normalize_spec", {}).get("Train")
     loss = build_loss(config["Loss"])
     step = make_train_step(model, wrap_loss(loss) if wrap_loss else loss, opt,
-                           input_transform=build_input_transform(spec), amp=amp, frozen=frozen)
+                           input_transform=build_input_transform(spec), amp=amp, frozen=frozen,
+                           remat=remat)
     return model, opt, step
 
 
@@ -3911,14 +3950,14 @@ DET_TRAIN = {
 
 
 def sized(config, side):
-    """A copy of a PSE/PAN training config whose crops (and the GT makers'
-    upscale target) are `side` square."""
+    """A copy of a DB, PSE or PAN training config whose crops (and the GT
+    makers' upscale target) are `side` square."""
     import copy
 
     config = copy.deepcopy(config)
     for op in config["Train"]["dataset"]["transforms"]:
         name = next(iter(op))
-        if name == "RandomCropImgMask":
+        if name in ("RandomCropImgMask", "FusedDetAugCrop", "EastRandomCropData"):
             op[name]["size"] = [side, side]
         elif name in ("MakePseGt", "MakePanGt"):
             op[name]["size"] = side
@@ -6598,6 +6637,313 @@ def phase_serving(dev, card, tmp, pages, db, refs):
     return dict(launches=launches, dw=dw)
 
 
+# phase 22: the zoo's tail, at full width. Each config is a repo config with
+# its Architecture.Backbone replaced whole (a `-o Architecture.Backbone.name=`
+# override would leave the base backbone's keys behind)
+CONVNEXT_T = {"name": "ConvNeXt", "model_name": "tiny"}
+SWIN_T = {"name": "SwinTransformer", "embed_dim": 96, "depths": [2, 2, 6, 2],
+          "num_heads": [3, 6, 12, 24], "window_size": 7}
+REC_R34 = {"name": "ResNet", "layers": 34}
+TAIL_CONFIGS = {  # name: (base config, backbone, what it changes beside)
+    "convnext": (DET_CFG, CONVNEXT_T, None),
+    "swin": (DET_CFG, SWIN_T, None),
+    "rec34": (REC_CFG, REC_R34, None),
+    # (b): drop path 0 (the train step hands the model no generator), AdamW
+    "convnext_train": (TRAIN_CFG, dict(CONVNEXT_T, drop_path_rate=0.0), {
+        "base_lr": 0.001, "optim": {"name": "AdamW", "betas": [0.9, 0.999], "weight_decay": 0.05},
+        "lr_decay": {"name": "WarmupPolyLR", "warmup_epoch": 3, "power": 0.9}}),
+    "rec34_train": (REC_TRAIN_CFG, REC_R34, None),
+}
+# (b): steps of each run (remat, plain) over the first TAIL_BATCHES batches of
+# bs TRAIN_BS; the entry point's run: TAIL_EPOCHS epochs of phase 11's pages,
+# the profiler over TAIL_PROFILE
+TAIL_STEPS, TAIL_BATCHES, TAIL_EPOCHS, TAIL_PROFILE = 12, 4, 2, (2, 4)
+# the two runs' losses step by step and running statistics after them:
+# within float32 rounding over the run (|diff| <= TAIL_REMAT_TOL (|v| + 1e-2))
+TAIL_REMAT_TOL = 1e-5
+# (c): each optimizer's steps on one fixed batch of CRNN-ResNet34 lines
+TAIL_OPTIMS = {
+    "SGD": {"base_lr": 0.005, "optim": {"name": "SGD", "momentum": 0.9, "nesterov": True,
+                                        "weight_decay": 1e-4}},
+    "RMSprop": {"base_lr": 1e-4, "optim": {"name": "RMSprop", "alpha": 0.99, "eps": 1e-8}},
+}
+TAIL_OPT_STEPS, TAIL_OPT_BS = 10, 32
+# a parameter after an update against optax's rule in float64 on the card's own
+# gradients: |p - want| <= TAIL_ULPS x 2^-23 (|p before| + the update's terms'
+# absolute sum), float32 rounding of the state and the update (optax_rule)
+TAIL_ULPS = 8
+
+
+def tail_configs(tmp):
+    """TAIL_CONFIGS written to `tmp` (once: the CPU reference processes read
+    them); {name: path}."""
+    from pytorchocr_tpu_torch.utils.config import load_config, save_config
+
+    paths = {}
+    for name, (base, backbone, optimizer) in TAIL_CONFIGS.items():
+        paths[name] = os.path.join(tmp, "tail_%s.yml" % name)
+        if not os.path.exists(paths[name]):
+            cfg = load_config(base)
+            cfg["Architecture"]["Backbone"] = dict(backbone)
+            if optimizer is not None:
+                cfg["Optimizer"] = optimizer
+            save_config(cfg, paths[name] + ".part")
+            os.replace(paths[name] + ".part", paths[name])
+    return paths
+
+
+def job_tail(tmp, pages, kind, rec_pt=None):
+    """Phase 22's seeded detector of `kind` ("convnext", with its seeded
+    CRNN-ResNet34; "swin", behind phase 5's CRNN `rec_pt`) and its CPU
+    reference on the first ZOO_CPU_PAGES pages."""
+    import torch
+
+    from pytorchocr_tpu_torch.utils.seeded import text_like_db_head_
+
+    cfgs = tail_configs(tmp)
+    few = pages[:ZOO_CPU_PAGES]
+    seed = SEED + 80 + (kind == "swin")
+    det_pt, margin = seeded_det(tmp, cfgs[kind], few, text_like_db_head_, seed)
+    rec_cfg = REC_CFG
+    if kind == "convnext":
+        rec_cfg = cfgs["rec34"]
+        rec_pt = seeded_rec(tmp, rec_cfg, pages, torch.Generator().manual_seed(seed + 10),
+                            "rec34.pt")
+    return dict(ref_ocr((cfgs[kind], det_pt, rec_cfg, rec_pt), few), det_pt=det_pt,
+                rec_pt=rec_pt, rec_cfg=rec_cfg, margin=margin)
+
+
+def tail_remat(dev, card, config):
+    """(b) TAIL_STEPS bf16 steps of DB-ConvNeXt-tiny with AdamW over the
+    first TAIL_BATCHES batches, once with Global.remat and once without,
+    from one seeded init, cuDNN deterministic: steps/s (the first step, with
+    its setup, untimed), peak memory, and the two runs' losses step by step
+    and running statistics after them within TAIL_REMAT_TOL."""
+    import torch
+
+    from pytorchocr_tpu_torch.trainer import batch_to_device
+
+    batches = [batch_to_device(b, dev) for b in first_batches(config, TAIL_BATCHES, TRAIN_BS)]
+    runs = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for remat in (False, True):
+            model, _, step = train_parts(config, dev, amp=True, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with paused("tail-remat" if remat else "tail-plain"):
+                losses = [step(batches[0])["loss"]]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(1, TAIL_STEPS):
+                    losses.append(step(batches[i % len(batches)])["loss"])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            runs[remat] = dict(
+                rate=(TAIL_STEPS - 1) / secs, peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                losses=torch.stack(losses).double().cpu(),
+                stats={k: v.double().cpu() for k, v in model.state_dict().items()
+                       if "running" in k})
+            del model, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    plain, remat = runs[False], runs[True]
+    loss_off = float(((remat["losses"] - plain["losses"]).abs()
+                      / (plain["losses"].abs() + 1e-2)).max())
+    stat_off = max(float(((remat["stats"][k] - v).abs() / (v.abs() + 1e-2)).max())
+                   for k, v in plain["stats"].items())
+    check(bool(torch.isfinite(plain["losses"]).all()), "tail-remat: a loss is not finite")
+    check(loss_off <= TAIL_REMAT_TOL and stat_off <= TAIL_REMAT_TOL,
+          "tail-remat: Global.remat's run differs from the plain one: losses by %.3g, running "
+          "statistics by %.3g of |v| + 1e-2 (tolerance %g)" % (loss_off, stat_off, TAIL_REMAT_TOL))
+    say("tail-remat", "DB-ConvNeXt-tiny (FPN 256, DBHead; drop path 0) with AdamW (wd 0.05), bs "
+        "%d at %dx%d, bf16 autocast, %d steps over %d fixed batches from one seeded init, cuDNN "
+        "deterministic: plain %.3f steps/s, peak %.2f GiB; Global.remat %.3f steps/s (%.3f of "
+        "plain), peak %.2f GiB (%.3f of plain); losses step by step %.3g and running statistics "
+        "%.3g of |v| + 1e-2 apart (tolerance %g); loss %.4f -> %.4f; on %s"
+        % (TRAIN_BS, TRAIN_SIZE, TRAIN_SIZE, TAIL_STEPS, TAIL_BATCHES, plain["rate"],
+           plain["peak"], remat["rate"], remat["rate"] / plain["rate"], remat["peak"],
+           remat["peak"] / plain["peak"], loss_off, stat_off, TAIL_REMAT_TOL,
+           float(plain["losses"][0]), float(plain["losses"][-1]), card))
+
+
+def tail_train(dev, card, tmp, cfg_path, train_label, eval_label):
+    """(b) DB-ConvNeXt-tiny with AdamW on phase 11's pages: tail_remat, the
+    entry point with Global.remat and Global.use_profiler (no evaluate: an
+    8-step model's maps are noise, whose components cost the host tail
+    seconds a page; phase 11's evaluate holds that path), and one float32
+    AdamW step held to a float64 CPU step (bs 2 at 320x320: the CPU's
+    float64 ConvNeXt step kept short) on phase 12-13's floors: the card's
+    LayerNorm-weight gradients reached 3.03 of the CPU float32 step's own
+    error there (2.46e-5 of the leaf's largest |g|, on an H100 80GB HBM3 at
+    700 W), so a leaf's floor is the larger of that error and ELEM_SCALE of
+    its largest |g|, which the TF32 control breaks."""
+    import numpy as np
+
+    from pytorchocr_tpu_torch.tools import program
+
+    out = os.path.join(tmp, "convnext_out")
+    argv = train_argv(out, train_label, eval_label, TAIL_EPOCHS, cfg=cfg_path)
+    config = program.preprocess(is_train=True, argv=argv)[0]
+    f32_config = sized(config, 320)
+    f32_check = compare_f32_step(f32_config, dev, first_batches(f32_config, 1, 2)[0], card,
+                                 what="bs 2, 320x320", tag="convnext-f32", loss_pieces=True,
+                                 zero_grad=db_student_zero_grad, card_floors=True)
+    tail_remat(dev, card, config)
+
+    start, end = TAIL_PROFILE
+    report, run_s = train_run(argv + [
+        "Global.eval_epoch_step=[%d,1]" % TAIL_EPOCHS, "Global.remat=True",
+        "Global.use_profiler=True", "Global.profile_start_step=%d" % start,
+        "Global.profile_end_step=%d" % end])
+    steps = TAIL_EPOCHS * (TRAIN_PAGES // TRAIN_BS)
+    check(report["steps"] == steps, "convnext-train: %d steps, not %d" % (report["steps"], steps))
+    check(bool(np.isfinite(report["losses"]).all()), "convnext-train: a loss is not finite")
+    trace = report["profile"]
+    check(trace is not None and os.path.exists(trace),
+          "convnext-train: Global.use_profiler wrote no trace")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "convnext-train: the profiler's trace holds no card kernel")
+    say("convnext-train", "tools.train.run with Global.remat and Global.use_profiler (window "
+        "[%d, %d)): %d steps of bs %d at %dx%d in %.1f s, %.3f steps/s (loader wait %.1f%%); "
+        "trace %s, %.1f MB, %d events (%d card kernels) over steps %d-%d; on %s"
+        % (start, end, report["steps"], TRAIN_BS, TRAIN_SIZE, TRAIN_SIZE, run_s,
+           report["steps"] / report["wall_s"], 100.0 * report["reader_s"] / report["wall_s"],
+           os.path.basename(trace), os.path.getsize(trace) / 1e6, len(events), kernels, start,
+           end - 1, card))
+    later(f32_check)
+
+
+def optax_rule(name, cfg, p0, grads, lr, state):
+    """optax's update of `name` (the JAX package's SGD / RMSprop, its
+    optimizer/__init__.py:44-58) in float64, from `p0` and `grads` (float64
+    lists), with `state` (a dict, empty at the first step) updated in place:
+    per parameter the parameter after it and the update's scale, the same
+    sums over the absolute values of their terms (what float32 rounding is
+    relative to where the terms cancel)."""
+    import torch
+
+    optim = cfg["optim"]
+    m = optim.get("momentum", 0.0)
+    out = []
+    for i, (p, g) in enumerate(zip(p0, grads)):
+        zero = torch.zeros_like(g)
+        if name == "SGD":  # add_decayed_weights, then trace (nesterov), then -lr
+            wd = optim.get("weight_decay", 0.0)
+            g, g_abs = g + wd * p, g.abs() + wd * p.abs()
+            if m:
+                t = g + m * state.get(("t", i), zero)
+                t_abs = g_abs + m * state.get(("|t|", i), zero)
+                state[("t", i)], state[("|t|", i)] = t, t_abs
+                if optim.get("nesterov"):
+                    g, g_abs = g + m * t, g_abs + m * t_abs
+                else:
+                    g, g_abs = t, t_abs
+            out.append((p - lr * g, lr * g_abs))
+        else:  # scale_by_rms (eps in the root, zero initial scale), -lr, trace
+            a = optim.get("alpha", 0.99)
+            nu = (1 - a) * g * g + a * state.get(("nu", i), zero)
+            state[("nu", i)] = nu
+            u = -lr * g / torch.sqrt(nu + optim.get("eps", 1e-8))
+            t = u + m * state.get(("t", i), zero)
+            t_abs = u.abs() + m * state.get(("|t|", i), zero)
+            state[("t", i)], state[("|t|", i)] = t, t_abs
+            out.append((p + t, t_abs))
+    return out
+
+
+def tail_optimizers(dev, card, tmp, cfg_path, lines):
+    """(c) SGD (nesterov, weight decay) and RMSprop on CRNN-ResNet34
+    (rec_vgg_bilstm_ctc_synth.yml with Backbone {name: ResNet, layers: 34})
+    for TAIL_OPT_STEPS bf16 steps on one fixed batch of phase 12's lines,
+    each from the seeded init at a constant LR: every update held to optax's
+    rule applied in float64 on the card to the card's own gradients, and the
+    loss falls."""
+    import copy
+
+    import torch
+
+    from pytorchocr_tpu_torch.trainer import batch_to_device
+
+    train_label, eval_label = lines[:2]
+    first = os.path.join(tmp, "rec34_first.txt")
+    with open(first, "w") as f:
+        f.write("".join(open(train_label).readlines()[:TAIL_OPT_BS]))
+    config = lines_config(lines_argv(cfg_path, os.path.join(tmp, "rec34_out"), first,
+                                     eval_label, 1))
+    batch = first_batches(config, 1, TAIL_OPT_BS)[0]
+    parts = []
+    for name, opt_cfg in TAIL_OPTIMS.items():
+        cfg = copy.deepcopy(config)
+        cfg["Optimizer"] = copy.deepcopy(opt_cfg)
+        model, opt, step = train_parts(cfg, dev, amp=True, schedule=(1, 1))
+        params = [p for g in opt.param_groups for p in g["params"]]
+        b = batch_to_device(batch, dev)
+        state, losses, worst = {}, [], 0.0
+        for _ in range(TAIL_OPT_STEPS):
+            p0 = [p.detach().double() for p in params]
+            lr = opt.current_lr()
+            losses.append(float(step(b)["loss"]))
+            want = optax_rule(name, opt_cfg, p0, [p.grad.detach().double() for p in params],
+                              lr, state)
+            for p, (w, scale), q in zip(params, want, p0):
+                bound = TAIL_ULPS * 2.0 ** -23 * (q.abs() + scale) + 1e-30
+                worst = max(worst, float(((p.detach().double() - w).abs() / bound).max()))
+        check(worst <= 1.0, "tail-%s: an update is %.3g of its bound from optax's rule "
+              "(float64, on the card's gradients)" % (name, worst))
+        check(sum(losses[-3:]) / 3 < losses[0], "tail-%s: the loss did not fall: %s"
+              % (name, ", ".join("%.4f" % v for v in losses)))
+        parts.append("%s (%s; LR %g) loss %s, every update within %.3g of its bound"
+                     % (name, ", ".join("%s %s" % kv for kv in opt_cfg["optim"].items()
+                                        if kv[0] != "name"), opt_cfg["base_lr"],
+                        " -> ".join("%.3f" % v for v in losses[::3]), worst))
+        del model, opt, step
+    say("tail-optim", "CRNN-ResNet34 (BiLSTM 256, CTC over the 36-character table and blank), "
+        "%d bf16 steps on one batch of %d drawn lines at 1x32x320 from the seeded init: %s "
+        "(the bound: %d x 2^-23 x (|p| + the update's terms' absolute sum) from optax's rule "
+        "in float64 on the card's own gradients); on %s" % (TAIL_OPT_STEPS, TAIL_OPT_BS, "; ".join(parts), TAIL_ULPS,
+                                   card))
+
+
+def phase_zoo_tail(dev, card, tmp, pages, db, refs, labels, lines):
+    """Phase 22, the zoo's tail: (b) tail_train and (c) tail_optimizers
+    first (the float64 step of (b) runs in the CPU reference process
+    meanwhile, and the first process makes (a)'s references), then (a)
+    DB-ConvNeXt-tiny + CRNN-ResNet34 and DB-Swin-T + phase 5's CRNN served
+    at full width (zoo_ocr_path: float32 against the CPU on ZOO_CPU_PAGES
+    pages, the bf16 main path on all pages with every K1 launch held,
+    pages/s and stages). Returns K1's launches by path."""
+    t_phase = time.perf_counter()
+    cfgs = tail_configs(tmp)
+    tail_train(dev, card, tmp, cfgs["convnext_train"], *labels)
+    t_c = time.perf_counter()
+    tail_optimizers(dev, card, tmp, cfgs["rec34_train"], lines)
+    t_a = time.perf_counter()
+    k1 = {}
+    ref = refs["tail convnext"].result()
+    say("convnext", "seeded DB-ConvNeXt-tiny (det_r18_db.yml with Backbone %s: depths 3/3/9/3, "
+        "widths 96-768, LayerNorm taps; FPN 256, DBHead k=50), head text-like on %d pages: "
+        "margin %s logits; with a seeded CRNN-ResNet34 (rec_vgg_bilstm_ctc.yml with Backbone "
+        "%s, BiLSTM 256, CTC over 6,624 classes)" % (CONVNEXT_T, ZOO_CPU_PAGES,
+                                                     _fmt(ref["margin"]), REC_R34))
+    k1["DB-ConvNeXt"] = zoo_ocr_path(dev, card, "convnext", cfgs["convnext"], ref["det_pt"],
+                                     ref["margin"], ref["rec_cfg"], ref["rec_pt"], pages, ref)
+    ref = refs["tail swin"].result()
+    say("swin", "seeded DB-Swin-T (det_r18_db.yml with Backbone %s: 1,242 7x7 windows a page "
+        "at stage 1 (184x320 padded to 189x322), shifted in every second block; FPN 256, "
+        "DBHead k=50), head text-like on %d pages: margin %s logits; with phase 5's CRNN"
+        % (SWIN_T, ZOO_CPU_PAGES, _fmt(ref["margin"])))
+    k1["DB-Swin"] = zoo_ocr_path(dev, card, "swin", cfgs["swin"], ref["det_pt"], ref["margin"],
+                                 REC_CFG, db["rec_pt"], pages, ref)
+    say("zoo-tail", "phase 22 took %.1f s: (b) %.1f s, (c) %.1f s, (a) %.1f s"
+        % (time.perf_counter() - t_phase, t_c - t_phase, t_a - t_c, time.perf_counter() - t_a))
+    return k1
+
+
 def forbidden_modules():
     """Modules of JAX, flax or the JAX package that this process loaded: the
     port and this script import none of them."""
@@ -6613,20 +6959,21 @@ STREAMED = ("back-to-back launches in one CUDA graph over rotating copies of the
 # so on its line and does not fail the run (the host's speed moves every
 # phase; PERF.md §6); they sum to at most 990 s
 PHASE_BUDGET_S = {"1-2": 25, "3": 12, "4": 2, "5": 20, "6": 30, "7": 40, "8": 30, "9": 5,
-                  "9 (requant)": 3, "10": 15, "11": 60, "12": 45, "13": 40, "14": 100, "15": 85,
-                  "16": 45, "17": 110, "18": 70, "19": 125, "20": 10, "20 (end)": 10, "21": 80,
-                  "checks": 15}
+                  "9 (requant)": 3, "10": 15, "11": 55, "12": 40, "13": 35, "14": 90, "15": 85,
+                  "16": 45, "17": 100, "18": 70, "19": 115, "20": 10, "20 (end)": 10, "21": 80,
+                  "22": 55, "checks": 15}
 ORDER = tuple(p for p in PHASE_BUDGET_S if p != "checks")
 # what a phase reads from earlier ones (--only adds them)
 NEEDS = {"6": ("5",), "8": ("5",), "9": ("8",), "9 (requant)": ("8",), "10": ("5",),
          "14": ("11",), "15": ("11",), "16": ("5",), "17": ("11", "12"), "19": ("11", "12"),
-         "20": ("11",), "21": ("5", "11")}
+         "20": ("11",), "21": ("5", "11"), "22": ("5", "11", "12")}
 # the CPU reference jobs a phase reads (submit_references)
 REFS = {"5": ("slice",), "6": ("slice", "pse"), "7": ("pan",), "8": ("slice", "int8"),
         "10": ("slice", "cls"), "12": ("lines rec",), "13": ("lines cls",),
         "16": ("slice", "dbpp", "starnet") + tuple(tag for tag, _, _ in ZOO_DET),
         "21": ("slice",) + tuple(src for _, src in ZOO_INT8)
-        + tuple("int8 " + tag for tag, _ in ZOO_INT8)}
+        + tuple("int8 " + tag for tag, _ in ZOO_INT8),
+        "22": ("slice", "tail convnext", "tail swin")}
 
 
 def chosen_phases(arg):
@@ -6770,6 +7117,7 @@ def run_phases(dev, card, tmp, phases):
     phase("10", phase_cls, dev, card, tmp, pages, db, refs.get("cls"))
     phase("16", phase_zoo_serve, dev, card, tmp, pages, db, refs)
     phase("21", phase_serving, dev, card, tmp, pages, db, refs)
+    phase("22", phase_zoo_tail, dev, card, tmp, pages, db, refs, labels, lines)
     kernels_ready(list(_kernels.SIGNATURES))  # every kernel built, whichever phases ran
     phases = list(phases) + ["checks"]
     phase("checks", run_deferred)  # the float32-step checks held back (later)
@@ -6781,7 +7129,7 @@ def run_phases(dev, card, tmp, phases):
     k1_paths = {"DB": got["5"][0], "PSE": got["6"][0], "PAN": got["7"],
                 "train-eval": got["11"][0], "PSE-train-eval": got["14"][0],
                 "PAN-train-eval": got["15"][0], **got["16"], "DB++-train-eval": got["17"],
-                **got["19"], "DP-train-eval": got["20 (end)"]}
+                **got["19"], "DP-train-eval": got["20 (end)"], **got["22"]}
     k2_paths = {"PSE": got["6"][1], "PSE-train-eval": got["14"][1]}
     return dict(k1_paths=k1_paths, k2_paths=k2_paths, k1=got["1-2"], k2=got["3"], q8=got["9"],
                 rq=got["9 (requant)"], q8_launches=got["8 launches"], zoo=got["21"], total=total)

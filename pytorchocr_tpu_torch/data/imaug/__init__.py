@@ -2,25 +2,24 @@
 (`transform`, `create_operators`), one module per JAX module of
 pytorchocr_tpu/data/imaug/.
 
-Ported: the eval ops of the deploy entry points, the DB, PSE and PAN training
-chains (det_r18_db*.yml, det_r50_pse*.yml, det_r18_pan*.yml), the CRNN
-and cls training chains (rec_vgg_bilstm_ctc*.yml, cls_mbv3small*.yml) and
-the SLANet table chain (table_sla_*.yml). Any other op of the
-JAX registry raises NotImplementedError naming the ROADMAP.md item that
-ports it.
+Ported: every op of the JAX registry but RecResizeImgForTest (the JAX
+package's width-bucketed batching resize, rec_img_aug.py:60, a TPU
+compile-shape workaround that no config or CLI calls), which raises
+NotImplementedError naming ROADMAP.md A.15.
 """
 
 from .color_jitter import ColorJitter
+from .copy_paste import CopyPaste
 from .fused_aug_crop import FusedDetAugCrop
 from .iaa_augment import IaaAugment
-from .label_ops import (ClsLabelEncode, CTCLabelEncode, DetLabelEncode, TableBoxEncode,
-                        TableLabelEncode)
+from .label_ops import (AttnLabelEncode, ClsLabelEncode, CTCLabelEncode, DetLabelEncode,
+                        TableBoxEncode, TableLabelEncode)
 from .make_border_map import MakeBorderMap
 from .make_pan_gt import MakePanGt
 from .make_pse_gt import MakePseGt
 from .make_shrink_map import MakeShrinkMap
 from .operators import (DecodeImage, DetResizeForTest, KeepKeys, Normalize, NormalizeImage,
-                        ToTensor)
+                        Resize, ToCHWImage, ToTensor)
 from .random_crop_data import EastRandomCropData, RandomCropImgMask
 from .randaugment import RandAugment
 from .rec_img_aug import ClsResizeImg, RecAug, RecResizeImg
@@ -31,16 +30,11 @@ OPS = {op.__name__: op for op in (
     RecResizeImg, ClsResizeImg, DetLabelEncode, IaaAugment, EastRandomCropData,
     FusedDetAugCrop, MakeShrinkMap, MakeBorderMap, ClsLabelEncode, CTCLabelEncode, RecAug,
     RandAugment, ColorJitter, MakePseGt, MakePanGt, RandomCropImgMask, TableLabelEncode,
-    TableBoxEncode, ResizeTableImage, PaddingTableImage,
+    TableBoxEncode, ResizeTableImage, PaddingTableImage, AttnLabelEncode, CopyPaste, Resize,
+    ToCHWImage,
 )}
 
-_LATER = dict(
-    # ops that no config of the repo uses (RecResizeImgForTest: the JAX
-    # package's width-bucketed batching resize, rec_img_aug.py:60, a TPU
-    # compile-shape workaround that no config or CLI calls)
-    {name: "A.15" for name in ("CopyPaste", "Resize", "ToCHWImage", "RecResizeImgForTest")},
-    AttnLabelEncode="A.11",
-)
+_LATER = {"RecResizeImgForTest": "A.15"}
 
 
 def transform(data, ops=None):

@@ -1,8 +1,8 @@
 """Label encoders — the port's copy of ClsLabelEncode, DetLabelEncode,
-BaseRecLabelEncode, CTCLabelEncode, TableLabelEncode and TableBoxEncode
-(pytorchocr_tpu/data/imaug/label_ops.py:11,25,54,115,180,345).
-AttnLabelEncode waits for ROADMAP.md A.11; TableLabelEncode carries the
-special characters it would inherit from it.
+BaseRecLabelEncode, CTCLabelEncode, AttnLabelEncode, TableLabelEncode and
+TableBoxEncode (pytorchocr_tpu/data/imaug/label_ops.py:11,25,54,115,146,180,
+345). TableLabelEncode is an AttnLabelEncode, as in JAX: it takes its
+"sos" / "eos" table.
 """
 
 import json
@@ -139,14 +139,40 @@ class CTCLabelEncode(BaseRecLabelEncode):
         return ["blank"] + dict_character
 
 
-class TableLabelEncode:
+class AttnLabelEncode(BaseRecLabelEncode):
+    """Text -> `label`: sos (0), the text's indices, eos (the table's last
+    index), zero-padded to max_text_length, and `length`, the text's own
+    length; None where the text is max_text_length long or longer. The table
+    is "sos", the characters, "eos". From label_ops.py:146."""
+
+    def __init__(self, max_text_length, character_dict_path=None, use_space_char=False,
+                 **kwargs):
+        super().__init__(max_text_length, character_dict_path, use_space_char)
+
+    def add_special_char(self, dict_character):
+        self.beg_str = "sos"
+        self.end_str = "eos"
+        return [self.beg_str] + dict_character + [self.end_str]
+
+    def __call__(self, data):
+        text = self.encode(data["label"])
+        if text is None or len(text) >= self.max_text_len:
+            return None
+        data["length"] = np.array(len(text))
+        text = ([0] + text + [len(self.character) - 1]
+                + [0] * (self.max_text_len - len(text) - 2))
+        data["label"] = np.array(text)
+        return data
+
+
+class TableLabelEncode(AttnLabelEncode):
     """Table structure tokens -> `structure` (sos, the token indices, eos,
     padded with sos to max_text_length + 2; None when longer), per-token
     cell boxes `bboxes` (loc_reg_num each) and `bbox_masks`, and the aux
     count targets `row_cnt` / `col_cnt` (clipped at 31). The table is the
     dictionary's lines (with merge_no_span_structure "<td></td>" in place
-    of "<td>") between "sos" and "eos", as AttnLabelEncode adds them
-    (label_ops.py:146-178). From label_ops.py:180."""
+    of "<td>") between "sos" and "eos" (AttnLabelEncode.add_special_char).
+    From label_ops.py:180."""
 
     def __init__(
         self,
@@ -162,8 +188,6 @@ class TableLabelEncode:
         self.learn_empty_box = learn_empty_box
         self.merge_no_span_structure = merge_no_span_structure
         self.replace_empty_cell_token = replace_empty_cell_token
-        self.beg_str = "sos"
-        self.end_str = "eos"
 
         dict_character = []
         with open(resolve_dict_path(character_dict_path), "rb") as fin:
@@ -200,9 +224,6 @@ class TableLabelEncode:
             "['<i>', '</i>']": "<eb9></eb9>",
             "['<b>', ' ', '\\u2028', ' ', '\\u2028', ' ', '</b>']": "<eb10></eb10>",
         }
-
-    def add_special_char(self, dict_character):
-        return [self.beg_str] + dict_character + [self.end_str]
 
     @property
     def _max_text_len(self):

@@ -1,6 +1,6 @@
 """Core image operators — the port's copy of DecodeImage, ToTensor, Normalize,
-NormalizeImage, KeepKeys and DetResizeForTest
-(pytorchocr_tpu/data/imaug/operators.py:16,43,61,77,106,140). Host-side
+NormalizeImage, ToCHWImage, KeepKeys, Resize and DetResizeForTest
+(pytorchocr_tpu/data/imaug/operators.py:16,43,61,77,95,106,117,140). Host-side
 numpy and cv2; images stay HWC, as in the JAX package: ToTensor scales to
 [0, 1] float32 HWC and Normalize works on the last axis.
 
@@ -86,6 +86,17 @@ class NormalizeImage:
         return data
 
 
+class ToCHWImage:
+    """HWC -> CHW. From operators.py:95."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, data):
+        data["image"] = data["image"].transpose((2, 0, 1))
+        return data
+
+
 class KeepKeys:
     """dict -> ordered list. From operators.py:106."""
 
@@ -94,6 +105,29 @@ class KeepKeys:
 
     def __call__(self, data):
         return [data[key] for key in self.keep_keys]
+
+
+class Resize:
+    """The image resized to `size` (h, w) by cv2, its polygons scaled alike.
+    From operators.py:117."""
+
+    def __init__(self, size=(640, 640), **kwargs):
+        self.size = size
+
+    def __call__(self, data):
+        img = data["image"]
+        resize_h, resize_w = self.size
+        ori_h, ori_w = img.shape[:2]
+        ratio_h = float(resize_h) / ori_h
+        ratio_w = float(resize_w) / ori_w
+        img = cv2.resize(img, (int(resize_w), int(resize_h)))
+        new_boxes = np.asarray(data["polys"], dtype=np.float32).copy()
+        if new_boxes.size:
+            new_boxes[..., 0] *= ratio_w
+            new_boxes[..., 1] *= ratio_h
+        data["image"] = img
+        data["polys"] = new_boxes
+        return data
 
 
 class DetResizeForTest:

@@ -6,10 +6,14 @@ weight bridge (utils/weights.py) maps flax paths onto torch names one to one.
 ConvBNAct carries the int8 PTQ flow of ops/quant.py: its conv is a
 `QuantConv`, and with `emit_q` it hands its consumers an int8 QTensor under
 int8 mode. `finish_residual` and `quant_max_pool` keep a ResNet block's
-output int8. SEModule (PPLCNet's squeeze-excite) is below; DPModule, which
-no config of the repo uses, waits for ROADMAP.md A.11.
+output int8. SEModule (PPLCNet's squeeze-excite), DPModule (which no
+config of the repo uses) and the drop path of ConvNeXt and Swin are below.
 """
 
+import contextlib
+import threading
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -50,6 +54,36 @@ ACTS = {
 }
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a forward that a checkpoint recomputes in the backward
+    (trainer.make_train_step's `remat`): BatchNorm2d leaves its running
+    statistics as the first forward left them, as jax.checkpoint's pure
+    recompute does. Thread-local: the backward may run on autograd's own
+    thread, which enters this context itself."""
+    before = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = before
+
+
+def _update_running(bn, mean, var):
+    """The flax blend of the batch statistics into `bn`'s running ones,
+    except inside a recompute (`recomputing`)."""
+    if getattr(_RECOMPUTE, "active", False):
+        return
+    with torch.no_grad():
+        keep = 1.0 - bn.momentum
+        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+        bn.num_batches_tracked.add_(1)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose training-mode running statistics follow flax's
     BatchNorm (modeling/common.py:125): the batch mean and the *biased*
@@ -79,12 +113,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         y, mean, invstd, _, _ = torch._batch_norm_impl_index(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps,
             torch.backends.cudnn.enabled)
-        with torch.no_grad():
-            var = torch.clamp(invstd.pow(-2) - self.eps, min=0.0)
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
-            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
-            self.num_batches_tracked.add_(1)
+        _update_running(self, mean, torch.clamp(invstd.detach().pow(-2) - self.eps, min=0.0))
         return y
 
     def _global_batch(self, x):
@@ -99,11 +128,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = functional.all_sum((centred * centred).sum(dims)) / count
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = centred * scale[None, :, None, None] + self.bias[None, :, None, None]
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
-            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
-            self.num_batches_tracked.add_(1)
+        _update_running(self, mean, var)
         return y.to(x.dtype)
 
 
@@ -212,3 +237,57 @@ class SEModule(nn.Module):
         s = x.mean(dim=(2, 3), keepdim=True)
         s = self.fc2(F.relu(self.fc1(s)))
         return x * hard_sigmoid(s)
+
+
+class DPModule(nn.Module):
+    """Depthwise then pointwise ConvBNAct, JAX modeling/common.py:214: `dw`
+    a k x k conv with one group a channel, `pw` a 1x1 conv to
+    `out_channels`, each with BN and `act`. The flax module reads its input
+    width from the input; here it is `in_channels`."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, act="leakyrelu"):
+        super().__init__()
+        self.dw = ConvBNAct(in_channels, in_channels, kernel_size, stride, groups=in_channels,
+                            act=act)
+        self.pw = ConvBNAct(in_channels, out_channels, 1, 1, act=act)
+
+    def forward(self, x):
+        return self.pw(self.dw(x))
+
+
+def linspace_f32(stop, num):
+    """`[float(r) for r in jnp.linspace(0, stop, num)]` on the JAX package's
+    CPU: jnp.linspace computes `0 * (1 - i / (num - 1)) + stop * (i / (num -
+    1))` in float32, which XLA folds to `(stop * (1 / (num - 1))) * i`, and
+    ends on `stop`; numpy's float32 linspace differs in the last bit on some
+    entries (the drop-path rates of JAX det_convnext.py:70-72)."""
+    if num <= 1:
+        return [0.0] * num
+    f = np.float32
+    rates = (f(stop) * (f(1) / f(num - 1))) * np.arange(num - 1, dtype=f)
+    return [float(v) for v in rates] + [float(f(stop))]
+
+
+def drop_path(x, rate, training, generator):
+    """Stochastic depth of JAX det_convnext.py:47-53 and det_swin.py:148-154:
+    in training with `rate` > 0, each sample of `x` is kept with probability
+    1 - rate (a Bernoulli mask over the batch axis from `generator`, a
+    torch.Generator on `x`'s device) and divided by the keep probability.
+
+    The JAX train step hands the model only a "sample" rng
+    (pytorchocr_tpu/trainer.py:159), so a drop path > 0 in a train-mode
+    forward raises flax's InvalidRngError there ("needs PRNG for
+    'dropout'"); the port's step hands no generator either, and the same
+    forward raises here."""
+    if rate <= 0.0 or not training:
+        return x
+    if generator is None:
+        raise RuntimeError(
+            "drop path %g in a train-mode forward needs a torch.Generator: the train step "
+            "hands the model none, as the JAX step hands it only a 'sample' rng "
+            "(pytorchocr_tpu/trainer.py:159), where flax raises InvalidRngError ('needs PRNG "
+            "for \"dropout\"'); set drop_path_rate: 0 to train" % rate)
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return x * mask.to(x.dtype) / keep

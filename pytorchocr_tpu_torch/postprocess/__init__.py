@@ -4,22 +4,21 @@ import copy
 
 __all__ = ["build_post_process"]
 
-_LATER = {"AttnLabelDecode": "A.11"}
-
 
 def build_post_process(config, global_config=None):
     from .cls_postprocess import ClsPostProcess
     from .db_postprocess import DBPostProcess, DistillationDBPostProcess
     from .pan_postprocess import PANPostProcess
     from .pse_postprocess import PSEPostProcess
-    from .rec_postprocess import CTCLabelDecode, DistillationCTCLabelDecode
+    from .rec_postprocess import AttnLabelDecode, CTCLabelDecode, DistillationCTCLabelDecode
     from .table_postprocess import TableLabelDecode
 
     support = {"DBPostProcess": DBPostProcess, "PSEPostProcess": PSEPostProcess,
                "PANPostProcess": PANPostProcess, "CTCLabelDecode": CTCLabelDecode,
                "ClsPostProcess": ClsPostProcess, "TableLabelDecode": TableLabelDecode,
                "DistillationDBPostProcess": DistillationDBPostProcess,
-               "DistillationCTCLabelDecode": DistillationCTCLabelDecode}
+               "DistillationCTCLabelDecode": DistillationCTCLabelDecode,
+               "AttnLabelDecode": AttnLabelDecode}
     config = copy.deepcopy(config)
     name = config.pop("name")
     if name == "None":
@@ -28,9 +27,5 @@ def build_post_process(config, global_config=None):
         config.update(global_config)
     if name in support:
         return support[name](**config)
-    if name in _LATER:
-        raise NotImplementedError(
-            "post process %s is not ported yet (ROADMAP.md %s)" % (name, _LATER[name])
-        )
     raise NotImplementedError("post process %s: unknown; the port supports %s"
                               % (name, list(support)))

@@ -1,14 +1,14 @@
 """Table structure decode — the port's copy of
-pytorchocr_tpu/postprocess/table_postprocess.py (TableLabelDecode :10), with
-the parts of AttnLabelDecode it inherits there (rec_postprocess.py:157-215:
-`add_special_char`, `get_ignored_tokens`); AttnLabelDecode itself waits for
-ROADMAP.md A.11. The predictions may be tensors on the card: they are read
-to the host as float32 numpy."""
+pytorchocr_tpu/postprocess/table_postprocess.py (TableLabelDecode :10), an
+AttnLabelDecode as in JAX (its `add_special_char`, `get_ignored_tokens`).
+The predictions may be tensors on the card: they are read to the host as
+float32 numpy."""
 
 import numpy as np
 import torch
 
 from ..utils.assets import resolve_dict_path
+from .rec_postprocess import AttnLabelDecode
 
 
 def _host(x):
@@ -17,7 +17,7 @@ def _host(x):
     return np.asarray(x)
 
 
-class TableLabelDecode:
+class TableLabelDecode(AttnLabelDecode):
     """`__call__(preds, batch)`: the greedy structure tokens (up to eos,
     sos and eos dropped) with their mean probability, and the boxes of the
     `td_token` steps scaled back to the source image by batch[-1] (the
@@ -51,14 +51,6 @@ class TableLabelDecode:
             return result
         label_decode_result = self.decode_label(batch)
         return result, label_decode_result
-
-    def add_special_char(self, dict_character):
-        self.beg_str = "sos"
-        self.end_str = "eos"
-        return [self.beg_str] + dict_character + [self.end_str]
-
-    def get_ignored_tokens(self):
-        return [np.array(self.dict[self.beg_str]), np.array(self.dict[self.end_str])]
 
     def decode(self, structure_probs, bbox_preds, shape_list):
         ignored_tokens = self.get_ignored_tokens()

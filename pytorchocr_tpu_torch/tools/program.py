@@ -23,10 +23,18 @@ the metric, so every rank takes the same best-model decision; a save is
 followed by a barrier. The report is per rank, with `world` and the global
 samples. Without the torchrun environment one process trains, as before.
 
+`Global.remat` recomputes the forward in the backward (trainer.py's
+`remat`). `Global.use_profiler` traces steps [`profile_start_step`,
+`profile_end_step`) (10 and 15 by default) on rank 0 with torch.profiler,
+the card's activity too, into `save_model_dir/profile` (a Chrome trace,
+`trace_steps<start>-<end>.json`), as the JAX loop writes its
+jax.profiler trace there (:584-592); a run that ends inside the window
+writes the steps it traced.
+
 Not carried over (ROADMAP.md A.15): `steps_per_dispatch`, the bf16 "wire
 dtype" (the port sends uint8 images and float32 label maps to the card),
 `StallWatchdog`, the save-hang and host-RSS re-exec watchdogs
-(`_resume_reexec`), `Global.use_profiler`, and the XLA compile cache.
+(`_resume_reexec`), and the XLA compile cache.
 `use_tensorboard` writes through torch.utils.tensorboard when it imports,
 else nothing, as the JAX writer does without tensorflow.
 """
@@ -37,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.profiler
 
 from ..parallel import mesh
 from ..trainer import (batch_to_device, build_input_transform, make_eval_step,
@@ -193,13 +202,57 @@ def preprocess(is_train=False, argv=None):
     return config, device, logger, tsb_writer
 
 
+class StepProfiler:
+    """Global.use_profiler: a torch.profiler trace (the host, and the card's
+    activity on a card) of the train steps [profile_start_step,
+    profile_end_step), written to save_model_dir/profile as a Chrome trace.
+    Off (every call a no-op) without use_profiler. From program.py:389-397
+    and :584-592."""
+
+    def __init__(self, global_config, device):
+        self.on = bool(global_config.get("use_profiler", False))
+        self.start = int(global_config.get("profile_start_step", 10))
+        self.end = int(global_config.get("profile_end_step", 15))
+        self.dir = os.path.join(global_config["save_model_dir"], "profile")
+        self.device = device
+        self.prof = None
+        self.path = None
+
+    def at(self, step):
+        """Before train step `step`: start or stop the trace."""
+        if not self.on:
+            return
+        if step == self.start and self.prof is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        elif step == self.end:
+            self.close(step)
+
+    def close(self, step):
+        """Stop a running trace after the steps before `step` and write it."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, "trace_steps%d-%d.json" % (self.start, step))
+        self.prof.export_chrome_trace(self.path)
+        get_logger().info("profiler: steps [%d, %d) traced to %s", self.start, step, self.path)
+        self.prof = None
+
+
 def train(config, device, train_dataloader, valid_dataloader, model, loss_class, optimizer,
           global_state, post_process_class, eval_class, logger, tsb_writer=None):
     """The epoch loop with eval and checkpoints. Returns a report: steps,
     samples, the wall, loader-wait, copy and per-step metric seconds of the
     train iterations of this rank, every step's loss (the global batch's;
     one sync at the end), the best metric, the rank and the data world
-    (`world`: samples times world is the global count). From
+    (`world`: samples times world is the global count), and on rank 0 the
+    profiler trace's path (`profile`, None without one). From
     program.py:291."""
     global_config = config["Global"]
     cal_metric_during_train = global_config.get("cal_metric_during_train", False)
@@ -247,7 +300,9 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
                     freeze_tf_epochs, frozen[0][1])
     train_step = make_train_step(model, loss_class, optimizer,
                                  input_transform=build_input_transform(dn_spec.get("Train")),
-                                 amp=amp, frozen=frozen)
+                                 amp=amp, frozen=frozen,
+                                 remat=bool(global_config.get("remat", False)))
+    profiler = StepProfiler(global_config, device) if rank0 else None
     eval_step = make_eval_step(model, input_transform=build_input_transform(dn_spec.get("Eval")),
                                amp=amp)
 
@@ -292,6 +347,8 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
             batch = batch_to_device(batch_np, device)
             report["copy_s"] += time.time() - train_start
             lr = optimizer.current_lr()
+            if profiler is not None:
+                profiler.at(global_step)
             losses = train_step(batch)
             history.append(losses["loss"])
             loss_window.append((losses, lr))
@@ -358,6 +415,9 @@ def train(config, device, train_dataloader, valid_dataloader, model, loss_class,
         if ckpt_save_type == "FixedEpochStep" and (epoch + 1) % save_epoch_step == 0:
             save("epoch_{}".format(epoch))
 
+    if profiler is not None:
+        profiler.close(global_step)
+        report["profile"] = profiler.path
     if rank0:
         logger.info("best metric, {}".format(
             ", ".join("{}: {}".format(k, v) for k, v in best_model_dict.items())))

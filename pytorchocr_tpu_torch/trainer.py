@@ -26,13 +26,30 @@ global batch's. The model is not wrapped (no DistributedDataParallel): a
 frozen teacher has no gradient to reduce, STAR-Net's freeze zeroes the
 averaged gradients, and checkpoints carry the model's own names.
 
+`remat` (Global.remat) recomputes the forward in the backward, as
+`jax.checkpoint(forward)` does (trainer.py:173): torch.utils.checkpoint,
+non-reentrant, over the autocast forward. jax.checkpoint recomputes a pure
+function, so flax's `batch_stats` update happens once; here the forward has
+two side effects that a recompute would repeat, and neither does: the BN
+running statistics are updated by the first forward only
+(modeling.common.recomputing skips the update inside the recompute; the
+global BN all-reduce of a data-parallel step runs again there, on every rank
+alike), and SLAHead's coins come from a generator made inside the
+recomputed function from the same seed, so the recompute draws the coins
+the forward drew (checkpoint's `preserve_rng_state` restores only the
+default generators).
+
 Not carried over (ROADMAP.md A.15): `make_multi_train_step` /
-`steps_per_dispatch`, `remat` (jax.checkpoint), `compiler_options`.
+`steps_per_dispatch`, `compiler_options`.
 """
+
+import contextlib
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from .modeling.common import recomputing
 from .parallel import functional
 
 
@@ -150,12 +167,14 @@ def takes_generator(model):
     return bool(getattr(getattr(model, "head", None), "takes_generator", False))
 
 
-def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, frozen=()):
+def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, frozen=(),
+                    remat=False):
     """Build the train step: step(batch) with batch a tuple of tensors on the
     model's device, batch[0] the NHWC image tensor; returns the loss dict
     (device tensors, not synced). The step's generator (`sample_generator`,
     seeded by the optimizer's count before the update, the JAX `state.step`)
-    goes to a model whose head takes one. From trainer.py:137."""
+    goes to a model whose head takes one. `remat` recomputes the forward in
+    the backward (the module docstring). From trainer.py:137."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     device = next(model.parameters()).device
     device_type = device.type
@@ -163,16 +182,23 @@ def make_train_step(model, loss_fn, optimizer, input_transform=None, amp=False, 
     # float32 losses, as JAX casts them; a float64 model (a reference step) keeps float64
     loss_dtype = torch.float64 if next(model.parameters()).dtype == torch.float64 else torch.float32
 
+    def forward(images, batch, count):
+        kw = {"generator": sample_generator(device, count)} if generator else {}
+        with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
+            return model(images.permute(0, 3, 1, 2), data=batch, **kw)  # NCHW view
+
     def step(batch):
         model.train()
         images = batch[0]
         if input_transform is not None:
             images = input_transform(images)
-        kw = {}
-        if generator:
-            kw["generator"] = sample_generator(device, optimizer.param_groups[0]["count"])
-        with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
-            preds = model(images.permute(0, 3, 1, 2), data=batch, **kw)  # NCHW view
+        count = optimizer.param_groups[0]["count"]
+        if remat:
+            preds = torch.utils.checkpoint.checkpoint(
+                forward, images, batch, count, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+        else:
+            preds = forward(images, batch, count)
         losses = loss_fn(float_preds(preds, loss_dtype), batch)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()

@@ -26,10 +26,11 @@ def seeded_init_(model, generator):
     """Re-initialise `model` in place from a torch.Generator, with the JAX
     package's initialisers: kaiming normal (fan_out) convs, lecun normal
     Linear and LSTM input weights, orthogonal LSTM recurrent weights, zero
-    biases, identity BN statistics; then every module's own JAX initialiser
-    where it has one (`init_like_jax_`: the TPS's zero tail and RARE's
-    fiducial init; `recurrent_weights`: the SLAHead cells' orthogonal
-    recurrent kernels)."""
+    biases, identity BN statistics and LayerNorms, Swin's relative position
+    bias tables truncated normal (0.02); then every module's own JAX
+    initialiser where it has one (`init_like_jax_`: the TPS's zero tail and
+    RARE's fiducial init, ConvNeXt's layer scale; `recurrent_weights`: the
+    SLAHead cells' orthogonal recurrent kernels)."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
             # fan_out of the flax kernel (kh, kw, in, out) is kh*kw*out
@@ -52,11 +53,15 @@ def seeded_init_(model, generator):
             for name, b in module.named_parameters():
                 if name.startswith("bias"):
                     b.zero_()
-        elif isinstance(module, nn.BatchNorm2d):
+        elif isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)):
             module.reset_parameters()
         if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
                 and module.bias is not None:
             module.bias.zero_()
+        table = getattr(module, "relative_position_bias_table", None)
+        if table is not None:
+            nn.init.trunc_normal_(table, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            table.mul_(0.02 / 0.87962566)
     for module in model.modules():
         if hasattr(module, "init_like_jax_"):
             module.init_like_jax_()

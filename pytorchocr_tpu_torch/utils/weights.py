@@ -9,6 +9,10 @@ the flax ones, so a torch module at `a.b.c` reads the flax subtree
                     flipped: flax's ConvTranspose applies the flipped kernel
   Linear            kernel (in, out) -> weight (out, in)
   BatchNorm2d       scale, bias, mean, var -> weight, bias, running_mean, running_var
+  LayerNorm         scale, bias -> weight, bias
+  any other module  its own nn.Parameters, each the flax leaf of its name in the
+                    flax layout (ConvNeXt's `gamma`, Swin's
+                    `relative_position_bias_table`)
   BiLSTM            wi (2, C, 4H), wh (2, H, 4H), b (2, 4H), direction-major with
                     gates i, f, g, o -> weight_ih_l0[_reverse] = wi[d].T,
                     weight_hh_l0[_reverse] = wh[d].T, bias_ih = b[d], bias_hh = 0
@@ -75,8 +79,11 @@ def _module_leaves(module, params, stats):
             "running_mean": np.asarray(stats["mean"], np.float32),
             "running_var": np.asarray(stats["var"], np.float32),
         }, {("p", "scale"), ("p", "bias"), ("s", "mean"), ("s", "var")}
+    elif isinstance(module, nn.LayerNorm):
+        return {"weight": p("scale"), "bias": p("bias")}, {("p", "scale"), ("p", "bias")}
     else:
-        return {}, set()
+        own = [n for n, _ in module.named_parameters(recurse=False)]
+        return {n: p(n) for n in own}, {("p", n) for n in own}
     used = {("p", "kernel")}
     if module.bias is not None:
         out["bias"] = p("bias")

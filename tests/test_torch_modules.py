@@ -171,12 +171,17 @@ def test_bridge_rejects_mismatched_trees():
 
 
 @pytest.mark.parametrize("section,name,item", [
-    ("Backbone", "ConvNeXt", "A.11"), ("Backbone", "SwinTransformer", "A.11"),
+    ("Backbone", "ConvNeXt", None), ("Backbone", "SwinTransformer", None),
     ("Head", "NoSuchHead", "unknown"),
 ])
 def test_registry_names_the_roadmap_item(section, name, item):
+    """An unknown name raises naming what the port supports; ConvNeXt and
+    SwinTransformer, which raised naming ROADMAP.md A.11, build, and so does
+    AttnLabelDecode."""
     arch = dict(DB_ARCH, **{section: {"name": name}})
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(arch)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        build_post_process({"name": "AttnLabelDecode"})
+    if item is None:
+        assert type(build_model(arch).backbone).__name__ == name
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            build_model(arch)
+    assert type(build_post_process({"name": "AttnLabelDecode"})).__name__ == "AttnLabelDecode"
